@@ -5,31 +5,54 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch`` with ``nvcc``, holds
-each kernel bitwise against its plain torch version over a seeded
-opcode sweep, times both at the main path's shapes, streams the 50
-TPC-DS queries at SF1 scale through ``QueryService`` windows on the card
-and on the CPU (results and MQO decisions must agree), runs the
-literal-program route, and prints one line per phase.  The line before
-the last is the kernels' JSON; the last line is the device JSON.  Any
-failure exits non-zero; without CUDA it exits non-zero before any
-result.  The script imports nothing of the JAX package.
+It builds the CUDA kernels from ``src/repro_torch`` with ``nvcc`` (one
+process per source, all at once) and drives both of the port's paths:
+
+* relational: holds the filter kernels bitwise against their plain torch
+  versions over a seeded opcode sweep, times both at the main path's
+  shapes, streams the 50 TPC-DS queries at SF1 scale through
+  ``QueryService`` windows on the card and on the CPU (results and MQO
+  decisions must agree), and runs the literal-program route;
+* attention (S1): holds ``decode_attention`` and ``flash_attention``
+  against their plain versions over a sweep of masks, GQA groups, head
+  dims and dtypes, and times them at the serving path's shapes beside
+  the plain version and ``scaled_dot_product_attention``;
+* serving (S2): serves granite-8b at full width through the prefix-cache
+  MQO engine three times (no MQO, MQO cold, MQO warm), which must
+  generate the same tokens and take the MQO decisions computed on the
+  CPU, and checks ``Model.forward`` with the flash kernel against the
+  plain attention on the card.
+
+``--only relational|attention|serving`` runs one group (for bring-up);
+with no argument every phase runs.  It prints one line per phase.  The
+line before the last is the kernels' JSON; the last line is the device
+JSON.  Any failure exits non-zero; without CUDA it exits non-zero before
+any result.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SF1_STORE_SALES_ROWS = 2_880_404   # TPC-DS SF1 store_sales cardinality
 FILTER_SCAN_CU = "src/repro_torch/kernels/filter_project/csrc/filter_scan.cu"
+DECODE_CU = ("src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu")
+FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SOURCES = (FILTER_SCAN_CU, DECODE_CU, FLASH_CU)
 WINDOW = 8                         # QueryService max_batch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 F32_RTOL = 1e-5                    # card vs CPU f32 aggregates (see below)
 # The card and the CPU sum f32 aggregates through f64 prefix sums whose
 # association order differs (a parallel scan on the card), so a group's
@@ -51,18 +74,31 @@ def device_line() -> str:
     return out[0]
 
 
-def build_kernels() -> tuple:
-    """Build the port's one kernel source with nvcc; returns the wall
-    seconds and ptxas's per-kernel resource lines (registers, stack
+def build_kernels(sources=SOURCES) -> tuple:
+    """Build the port's kernel sources with nvcc, one process per source
+    started together; returns the wall seconds and, per source, a
+    summary of ptxas's per-kernel resource report (registers, stack
     frame, spills)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    lib = _build.compile_source(ROOT / FILTER_SCAN_CU)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(lambda src: _build.compile_source(ROOT / src),
+                             sources))
     seconds = time.perf_counter() - t0
-    usage = [line.split("ptxas info    :")[-1].strip()
-             for line in lib.with_suffix(".log").read_text().splitlines()
-             if "Used" in line or "stack frame" in line]
+    usage = {}
+    for src, lib in zip(sources, libs):
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        regs = [int(w) for line in lines if "Used" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        stack = [int(line.split("ptxas info    :")[-1].split()[0])
+                 for line in lines if "stack frame" in line]
+        spills = sum("0 bytes spill stores" not in line
+                     for line in lines if "stack frame" in line)
+        usage[Path(src).stem] = (
+            f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"stack frame up to {max(stack)} bytes, {spills} with spills")
     return seconds, usage
 
 
@@ -360,14 +396,14 @@ def percentile(xs, q: float) -> float:
     return xs[lo] + (xs[hi] - xs[lo]) * (k - lo)
 
 
-def device_time(fn, device) -> dict:
+def device_time(fn, device, mark: str = "filter_scan_kernel") -> dict:
     """Run ``fn`` under ``torch.profiler``; returns its wall seconds,
     the device-busy seconds (the summed time of the kernels and copies
     that ran on the device — one stream, so they do not overlap; host
     ops, which the profiler also credits with their kernels' time, are
-    left out), the top device events and the filter kernel's own row
-    (its summed device time and launches).  ``busy`` is None when the
-    profiler saw no device activity."""
+    left out), the top device events and, under ``filter``, the summed
+    device time and launches of the events whose name holds ``mark``.
+    ``busy`` is None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -386,9 +422,10 @@ def device_time(fn, device) -> dict:
            and e.self_device_time_total > 0]
     dev.sort(key=lambda x: -x[1])
     busy = sum(t for _, t, _ in dev) or None
-    filt = [(t, n) for k, t, n in dev if "filter_scan_kernel" in k]
+    filt = [(t, n) for k, t, n in dev if mark in k]
     filt = (sum(t for t, _ in filt), sum(n for _, n in filt))
-    return dict(out=out, wall=wall, busy=busy, top=dev[:6], filter=filt)
+    return dict(out=out, wall=wall, busy=busy, top=dev[:6], filter=filt,
+                n_events=sum(n for _, _, n in dev))
 
 
 def main_path(K, cuda, scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
@@ -513,7 +550,429 @@ def literal_route(K, reference, cuda,
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase S1: attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+# Tolerances of the attention kernels against their plain versions on the
+# same inputs: both compute in f32 from the same inputs and round once
+# to the output dtype, but sum in another order, so f32 outputs may
+# differ by a few ulps of the f32 sums (2e-5, the JAX package's own
+# kernel-test tolerance) and bf16 outputs by one bf16 ulp of values
+# below 4 (3e-2, likewise).
+ATTN_ATOL = {"torch.float32": 2e-5, "torch.bfloat16": 3e-2}
+# Full-model logits, flash kernel against plain attention, both bf16 on
+# the card: the two attentions round to bf16 apart by at most one ulp
+# per element, and 36 bf16 layers carry that on; the logits must agree
+# within 5% of the largest logit (a wrong mask or head mapping moves
+# them by its whole size).
+FORWARD_RTOL = 0.05
+SERVE_SEED = 0
+GRANITE_LAYERS = 36
+
+
+def _randn(shape, dtype, device, gen):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def attention_sweep(device) -> dict:
+    """Both attention kernels against their plain versions: causal /
+    window (and neither) x group 1, 2, 4 x D 32, 64, 128, 256 x f32 /
+    bf16, with live lengths of 1 and lengths and offsets that are no
+    multiple of a tile.  Returns the worst error and case count per
+    kernel; raises on an error above ATTN_ATOL."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import decode_ref, mha_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    worst = {"decode_attention": 0.0, "flash_attention": 0.0}
+    cases = {"decode_attention": 0, "flash_attention": 0}
+
+    def check(name, got, want, dtype, what):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= ATTN_ATOL[str(dtype)]:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"by {err} at {what}")
+        worst[name] = max(worst[name], err)
+        cases[name] += 1
+
+    for d in (32, 64, 128, 256):
+        for group in (1, 2, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                hkv, hq, s = 2, 2 * group, 300
+                q = _randn((3, hq, d), dtype, device, gen)
+                k = _randn((3, hkv, s, d), dtype, device, gen)
+                v = _randn((3, hkv, s, d), dtype, device, gen)
+                kv_len = torch.tensor([1, 137, s], dtype=torch.int32,
+                                      device=device)
+                for window in (None, 48):
+                    check("decode_attention",
+                          DK.decode_attention(q, k, v, kv_len,
+                                              window=window),
+                          decode_ref(q, k, v, kv_len, window=window), dtype,
+                          f"D={d} group={group} {dtype} window={window}")
+                for t, s2 in ((100, 160), (130, 130), (1, 70)):
+                    q2 = _randn((1, hq, t, d), dtype, device, gen)
+                    k2 = _randn((1, hkv, s2, d), dtype, device, gen)
+                    v2 = _randn((1, hkv, s2, d), dtype, device, gen)
+                    for causal, window in ((True, None), (True, 48),
+                                           (False, None), (False, 48)):
+                        check("flash_attention",
+                              FK.flash_attention(q2, k2, v2, causal=causal,
+                                                 window=window),
+                              mha_ref(q2, k2, v2, causal=causal,
+                                      window=window), dtype,
+                              f"D={d} group={group} {dtype} T={t} S={s2} "
+                              f"causal={causal} window={window}")
+    return dict(worst=worst, cases=cases)
+
+
+def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str) -> dict:
+    """Times of the kernel, its plain version and one library call on
+    the same inputs, with the bound of the function's work."""
+    import torch
+
+    err = float((kern().float() - plain().float()).abs().max())
+    torch.cuda.synchronize()
+    if not err <= ATTN_ATOL["torch.bfloat16"]:
+        raise AssertionError(f"kernel disagrees at {shape}: {err}")
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib), bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                max_abs_err=err, shape=shape)
+
+
+def attention_timings(device) -> dict:
+    """Kernel, plain version and ``scaled_dot_product_attention`` at the
+    serving path's shapes (granite-8b, bf16): decode over a 1024-slot
+    cache at 128 and 1024 live keys, forward over a 256-token prompt.
+    Bounds count live bytes only: q and out once, the live K/V rows
+    once; the forward's operations are QK^T and PV over the causal
+    pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import decode_ref, mha_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    bf16 = torch.bfloat16
+    hq, hkv, d = 32, 8, 128
+    out = {}
+    q = _randn((1, hq, d), bf16, device, gen)
+    k = _randn((1, hkv, 1024, d), bf16, device, gen)
+    v = _randn((1, hkv, 1024, d), bf16, device, gen)
+    for live in (128, 1024):
+        kv_len = torch.tensor([live], dtype=torch.int32, device=device)
+        out[f"decode_attention/kv{live}"] = _timing(
+            lambda: DK.decode_attention(q, k, v, kv_len),
+            lambda: decode_ref(q, k, v, kv_len),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :, :live], v[:, :, :live],
+                enable_gqa=True),
+            2 * q.numel() * 2 + 2 * hkv * live * d * 2 + 4,
+            4 * hq * live * d,
+            f"q (1, {hq}, {d}), cache (1, {hkv}, 1024, {d}) bf16, "
+            f"kv_len {live}")
+    t = 256
+    q = _randn((1, hq, t, d), bf16, device, gen)
+    k = _randn((1, hkv, t, d), bf16, device, gen)
+    v = _randn((1, hkv, t, d), bf16, device, gen)
+    out["flash_attention"] = _timing(
+        lambda: FK.flash_attention(q, k, v, causal=True),
+        lambda: mha_ref(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True),
+        (2 * q.numel() + 2 * k.numel()) * 2,
+        4 * hq * d * (t * (t + 1) // 2),
+        f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase S2: granite-8b through the prefix-cache MQO engine
+# ---------------------------------------------------------------------------
+def serving_requests(cfg):
+    """8 requests over 2 few-shot templates of 256 seeded random tokens;
+    request i appends a distinct tail of 8 + i tokens and asks for 16
+    new tokens.  Returns (requests, templates)."""
+    import numpy as np
+
+    from repro_torch.serving import GenerationRequest
+
+    rng = np.random.default_rng(SERVE_SEED)
+    templates = [rng.integers(0, cfg.vocab_size, 256) for _ in range(2)]
+    tails = [rng.integers(0, cfg.vocab_size, 8 + i) for i in range(8)]
+    return [GenerationRequest(i, np.concatenate(
+        [templates[i % 2], tails[i]]).astype(np.int32), 16)
+        for i in range(8)], templates
+
+
+def cpu_decisions(cfg, requests, budget: int, block: int, k: int) -> dict:
+    """The MQO decisions for ``requests``, computed on the CPU from the
+    config alone: the SE count, the selected CEs and the bytes they
+    hold."""
+    from repro_torch.core import (build_covering_expressions,
+                                  generate_knapsack_items, price_ces,
+                                  solve_mckp)
+    from repro_torch.serving.costs import ServingCostModel
+    from repro_torch.serving.request import (identify_shared_prefixes,
+                                             plan_requests)
+
+    reqs = plan_requests(requests, block)
+    ses = identify_shared_prefixes(reqs, k=k)
+    ces = build_covering_expressions(ses)
+    cm = ServingCostModel(cfg)
+    price_ces(ces, cm)
+    sol = solve_mckp(generate_knapsack_items(ces), budget)
+    return dict(n_ses=len(ses), selected={ce.psi for ce in sol.ces},
+                pool_used=sum(cm.state_bytes(ce.tree.n_tokens)
+                              for ce in sol.ces))
+
+
+def serving_path(device, smi: str) -> dict:
+    """Phase S2: three runs of one engine and a forward, with the launch
+    counts set to 0 just before and read just after; then the checks
+    and the forward against the plain attention.  Raises on any failed
+    check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import _clone_state, _generate_scan
+
+    cfg = replace(get_config("granite-8b"), attn_impl="pallas")
+    if cfg.n_layers != GRANITE_LAYERS or cfg.dtype != "bfloat16":
+        raise AssertionError("granite-8b is not the 36-layer bf16 config")
+    budget, block, k = 64 << 20, 64, 2
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SERVE_SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serving: granite-8b, {n_params / 1e9:.3f} B parameters in bf16 "
+        f"on the card, initialised in {time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(cfg, params, pool_budget_bytes=budget,
+                        block_size=block, max_len=1024, k=k, policy="lru")
+    _, templates = serving_requests(cfg)
+    tokens = torch.as_tensor(templates[0][None], device=device)
+    runs = []
+    # cuBLAS picks its algorithms deterministically under this flag (the
+    # workspace is pinned by CUBLAS_WORKSPACE_CONFIG, set in main)
+    torch.use_deterministic_algorithms(True)
+    try:
+        DK.reset_launches()
+        FK.reset_launches()
+        for label, mqo in (("no MQO", False), ("MQO cold", True),
+                           ("MQO warm", True)):
+            outs, rep = eng.run_batch(serving_requests(cfg)[0], mqo=mqo)
+            runs.append((label, outs, rep, set(eng.pool.keys())))
+        with torch.inference_mode():
+            logits = forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = {"decode_attention": DK.LAUNCHES["decode_attention"],
+                    "flash_attention": FK.LAUNCHES["flash_attention"]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    generated = sum(r.max_new_tokens for r in serving_requests(cfg)[0])
+    for label, _, rep, _ in runs:
+        log(f"serving {label}: {rep.tokens_prefilled} prefill tokens "
+            f"(baseline {rep.tokens_prefilled_baseline}), "
+            f"{(rep.tokens_prefilled + generated) / rep.wall_seconds:.1f} "
+            f"decode steps/s, {generated / rep.wall_seconds:.2f} generated "
+            f"tokens/s, {rep.wall_seconds:.2f} s, SEs {rep.n_ses}, "
+            f"selected {rep.n_selected}, pool {rep.pool_used} B [{smi}]")
+    base = runs[0][1]
+    for label, outs, _, _ in runs[1:]:
+        if not all(np.array_equal(a, b) for a, b in zip(base, outs)):
+            raise AssertionError(f"{label} generated other tokens than "
+                                 f"the no-MQO run")
+    prefilled = [rep.tokens_prefilled for _, _, rep, _ in runs]
+    if not prefilled[2] < prefilled[1] < prefilled[0]:
+        raise AssertionError(f"tokens prefilled not warm < cold < "
+                             f"baseline: {prefilled}")
+    steps = sum(p + generated for p in prefilled)
+    if launches["decode_attention"] != GRANITE_LAYERS * steps:
+        raise AssertionError(
+            f"decode_attention launched {launches['decode_attention']} "
+            f"times, not {GRANITE_LAYERS} x {steps} decode steps: some "
+            f"attention did not go through the kernel")
+    if launches["flash_attention"] != GRANITE_LAYERS:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in one "
+                             f"forward, not {GRANITE_LAYERS}")
+    want = cpu_decisions(cfg, serving_requests(cfg)[0], budget, block, k)
+    for label, _, rep, resident in runs[1:]:
+        got = dict(n_ses=rep.n_ses, selected=resident,
+                   pool_used=rep.pool_used)
+        if got != want or rep.n_selected != len(want["selected"]):
+            raise AssertionError(f"{label}: MQO decisions differ from the "
+                                 f"CPU's: {rep.n_ses} vs {want['n_ses']} "
+                                 f"SEs, {rep.pool_used} vs "
+                                 f"{want['pool_used']} B")
+
+    # where a decode step's time goes: 16 greedy steps on a copy of the
+    # resident 256-token prefix state, under the profiler
+    resident = next(eng.pool.get(psi)[0] for psi in eng.pool.keys()
+                    if eng.pool.get(psi)[1] == 256)
+    first = tokens[:, -1:]
+    n_prof = 16
+    prof = device_time(lambda: _generate_scan(
+        params, _clone_state(resident), first, 256, cfg, n_prof), device,
+        mark="decode_split_kernel")
+    if prof["busy"] is None:
+        log("serving decode, profiled: device time not measured (the "
+            "profiler saw no device activity)")
+    else:
+        at, an = prof["filter"]
+        top = "; ".join(f"{k[:40]} {t * 1e3:.2f} ms x{n}"
+                        for k, t, n in prof["top"])
+        log(f"serving decode, profiled, {n_prof} steps at 257-272 live "
+            f"keys: wall {prof['wall'] / n_prof * 1e3:.2f} ms a step, "
+            f"device busy {prof['busy'] / n_prof * 1e3:.2f} ms a step "
+            f"(idle share {1 - prof['busy'] / prof['wall']:.3f}), "
+            f"{prof['n_events'] / n_prof:.0f} device events a step; "
+            f"decode_split_kernel {at * 1e3:.3f} ms x{an} "
+            f"({at / prof['busy']:.3f} of busy); top device events: "
+            f"{top} [{smi}]")
+
+    # the parallel forward with the flash kernel against the plain
+    # attention on the card: same weights, same tokens
+    real = A.attention
+    A.attention = lambda q, k, v, causal, window, scale, impl: mha_ref(
+        q, k, v, causal=causal, window=window, sm_scale=scale)
+    try:
+        with torch.inference_mode():
+            plain = forward(params, tokens, cfg)
+    finally:
+        A.attention = real
+    if logits.shape != (1, 256, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("forward logits not finite or misshapen")
+    err = float((logits.float() - plain.float()).abs().max())
+    top = float(plain.float().abs().max())
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"serving forward: 256-token template, flash_attention launched "
+        f"{launches['flash_attention']} times; logits vs plain attention "
+        f"max |diff| {err:.4g} of max |logit| {top:.4g} (limit "
+        f"{FORWARD_RTOL}), argmax agrees at {agree:.4f} of positions")
+    if not err <= FORWARD_RTOL * top:
+        raise AssertionError("forward with the flash kernel differs from "
+                             "the plain attention")
+    log(f"serving: generations bitwise equal across no-MQO / MQO cold / "
+        f"MQO warm; MQO decisions equal the CPU's ({want['n_ses']} SEs, "
+        f"{len(want['selected'])} selected, {want['pool_used']} B); "
+        f"decode_attention launched {launches['decode_attention']} times "
+        f"= {GRANITE_LAYERS} x {steps} decode steps, no attention outside "
+        f"the kernels")
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefilled=prefilled, forward_err=err,
+                forward_top=top)
+
+
+def relational_phases(cuda, smi: str) -> list:
+    """Phases 3-5: the filter kernels and the TPC-DS stream; returns the
+    kernels' JSON entries."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    checked = kernel_sweep(cuda)
+    log(f"kernels vs plain versions: bitwise equal over "
+        f"{checked['filter_scan']} literal and "
+        f"{checked['filter_scan_batch']} slotted programs")
+    timings = kernel_timings(cuda)
+    for name, t in timings.items():
+        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) [{smi}]")
+
+    stats = main_path(K, cuda)
+    literal = literal_route(K, stats["reference"], cuda)
+    log(f"literal route: filter_scan launched {literal['filter_scan']} "
+        f"times, results equal the main path's")
+    kernels = []
+    for name, launches, path, line in (
+            ("filter_scan_batch",
+             stats["launches"].get("filter_scan_batch", 0), "main",
+             "src/repro/kernels/filter_project/kernel.py:122"),
+            ("filter_scan", literal["filter_scan"], "literal-route",
+             "src/repro/kernels/filter_project/kernel.py:57")):
+        t = timings[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=FILTER_SCAN_CU, replaces=line,
+            launches=launches, path=path, max_abs_err=t["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
+    del stats, literal
+    return kernels
+
+
+def attention_phases(cuda, smi: str, serve: bool) -> list:
+    """Phases S1 (and S2 when ``serve``): the attention kernels against
+    their plain versions, their times, and the serving path; returns the
+    kernels' JSON entries."""
+    sweep = attention_sweep(cuda)
+    log(f"attention kernels vs plain versions: decode_attention "
+        f"{sweep['cases']['decode_attention']} cases, max |err| "
+        f"{sweep['worst']['decode_attention']:.3g}; flash_attention "
+        f"{sweep['cases']['flash_attention']} cases, max |err| "
+        f"{sweep['worst']['flash_attention']:.3g} (limits f32 "
+        f"{ATTN_ATOL['torch.float32']}, bf16 "
+        f"{ATTN_ATOL['torch.bfloat16']})")
+    timings = attention_timings(cuda)
+    for name, t in timings.items():
+        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{smi}]")
+    launches = serving_path(cuda, smi)["launches"] if serve else {}
+    kernels = []
+    for name, key, src, line in (
+            ("decode_attention", "decode_attention/kv128", DECODE_CU,
+             "src/repro/kernels/decode_attention/kernel.py:78"),
+            ("flash_attention", "flash_attention", FLASH_CU,
+             "src/repro/kernels/flash_attention/kernel.py:90")):
+        t = timings[key]
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=line,
+            launches=launches.get(name, 0), path="serving",
+            max_abs_err=max(t["max_abs_err"],
+                            sweep["worst"][name]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"])
+        if name == "decode_attention":
+            entry["kv1024"] = {k: v for k, v in
+                               timings["decode_attention/kv1024"].items()
+                               if k != "shape"}
+        kernels.append(entry)
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("relational", "attention",
+                                       "serving"),
+                    help="run one group of phases (bring-up); default all")
+    args = ap.parse_args(argv)
+    # pins cuBLAS's workspace so that deterministic algorithms are
+    # available to the serving phase; read when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -537,40 +996,20 @@ def main() -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     seconds, usage = build_kernels()
-    log(f"build: {seconds:.1f} s (nvcc, sm_90a); ptxas: {'; '.join(usage)}")
-
-    from repro_torch.kernels.filter_project import kernel as K
+    log(f"build: {seconds:.1f} s (nvcc, sm_90a, {len(usage)} sources in "
+        f"parallel)")
+    for name, summary in usage.items():
+        log(f"ptxas {name}: {summary}")
 
     cuda = torch.device("cuda")
-    checked = kernel_sweep(cuda)
-    log(f"kernels vs plain versions: bitwise equal over "
-        f"{checked['filter_scan']} literal and "
-        f"{checked['filter_scan_batch']} slotted programs")
-    timings = kernel_timings(cuda)
-    for name, t in timings.items():
-        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}) [{smi}]")
-
-    stats = main_path(K, cuda)
-    literal = literal_route(K, stats["reference"], cuda)
-    log(f"literal route: filter_scan launched {literal['filter_scan']} "
-        f"times, results equal the main path's")
-    log(f"total {time.perf_counter() - t_all:.1f} s")
-
     kernels = []
-    for name, launches, path, line in (
-            ("filter_scan_batch",
-             stats["launches"].get("filter_scan_batch", 0), "main",
-             "src/repro/kernels/filter_project/kernel.py:122"),
-            ("filter_scan", literal["filter_scan"], "literal-route",
-             "src/repro/kernels/filter_project/kernel.py:57")):
-        t = timings[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=FILTER_SCAN_CU, replaces=line,
-            launches=launches, path=path, max_abs_err=t["max_abs_err"],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
+    if args.only in (None, "relational"):
+        kernels += relational_phases(cuda, smi)
+        torch.cuda.empty_cache()
+    if args.only in (None, "attention", "serving"):
+        kernels += attention_phases(cuda, smi,
+                                    serve=args.only != "attention")
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,94 @@
+"""Blocked causal / sliding-window GQA flash attention forward for
+Hopper (CUDA C++, ``csrc/flash_attention.cu``).
+
+:func:`flash_attention` launches the kernel for CUDA tensors and runs
+the plain torch version in ``ref.py`` only for CPU tensors.  Each
+launch adds one to :data:`LAUNCHES`.  Forward only: the recompute
+backward comes with the training path.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from .. import _build
+from .ref import mha_ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(_SOURCE)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_launch.argtypes = [
+            p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p, p]
+        lib.flash_attention_launch.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k, v) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, not "
+                         f"{q.device.type}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError("q must be (B, Hq, T, D) and k, v (B, Hkv, S, D)")
+    b, hq, t, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or hq % k.shape[1]:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if t > k.shape[2]:
+        raise ValueError(f"T={t} query rows exceed S={k.shape[2]} keys")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype of "
+                         f"{list(_DTYPE_CODE)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, T, D); k, v: (B, Hkv, S, D); returns (B, Hq, T, D) in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, causal=causal, window=window,
+                       sm_scale=sm_scale)
+    _check(q, k, v)
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    dev = q.device
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), b, hq, hkv, t, s, d,
+            _DTYPE_CODE[q.dtype], int(bool(causal)),
+            -1 if window is None else int(window), float(scale),
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,184 @@
+"""Decoder stack: pattern-based block assembly, looped over repeats.
+
+A model is ``first_k_dense`` prefix layers + ``full_repeats`` copies of
+the layer ``pattern`` + remainder layers.  The JAX package scans a
+stacked copy of the pattern's parameters; here ``params["scan"]`` is a
+list (an ``nn.ModuleList``) of per-repeat parameter trees and the
+decoder loops over it.  Block kinds ``attn`` and ``local`` are ported;
+``mla``, ``mamba`` and ``rglru`` raise NotImplementedError (ROADMAP A8).
+
+Two entry points per stack: :func:`decoder_forward` (parallel over a
+token block) and :func:`decoder_decode_step` (one token, caches updated
+in place).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import attention as A
+from . import ffn as F
+from .common import rmsnorm, rmsnorm_spec
+from .config import ArchConfig
+
+_PORTED_KINDS = ("attn", "local")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in _PORTED_KINDS:
+        if kind in ("mla", "mamba", "rglru"):
+            raise NotImplementedError(
+                f"{kind} blocks are not ported yet (ROADMAP A8)")
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# per-block specs
+# ---------------------------------------------------------------------------
+def block_specs(cfg: ArchConfig, kind: str, ffn_kind: str) -> Dict:
+    _check_kind(kind)
+    return {"norm1": rmsnorm_spec(cfg.d_model), "mix": A.gqa_specs(cfg),
+            "norm2": rmsnorm_spec(cfg.d_model),
+            "ffn": F.ffn_specs(cfg, ffn_kind)}
+
+
+def decoder_specs(cfg: ArchConfig) -> Dict:
+    """The JAX package's spec tree with ``scan`` as a list over repeats
+    (the JAX package stacks the repeats on a leading axis)."""
+    specs: Dict[str, Any] = {}
+    if cfg.first_k_dense:
+        specs["prefix"] = [block_specs(cfg, cfg.pattern[0], "dense")
+                           for _ in range(cfg.first_k_dense)]
+    if cfg.full_repeats:
+        specs["scan"] = [
+            {str(p): block_specs(cfg, kind, cfg.ffn_kind)
+             for p, kind in enumerate(cfg.pattern)}
+            for _ in range(cfg.full_repeats)]
+    if cfg.remainder_layers:
+        specs["rem"] = [
+            block_specs(cfg, cfg.pattern[i % len(cfg.pattern)],
+                        cfg.ffn_kind)
+            for i in range(cfg.remainder_layers)]
+    return specs
+
+
+def _layers(params, cfg: ArchConfig):
+    """(block params, kind, ffn kind) of every layer, in order; the
+    index path of each block's cache matches (see ``_caches``)."""
+    for p in params.get("prefix", []):
+        yield p, cfg.pattern[0], "dense"
+    for layer in params.get("scan", []):
+        for p_i, kind in enumerate(cfg.pattern):
+            yield layer[str(p_i)], kind, cfg.ffn_kind
+    for i, p in enumerate(params.get("rem", [])):
+        yield p, cfg.pattern[i % len(cfg.pattern)], cfg.ffn_kind
+
+
+# ---------------------------------------------------------------------------
+# parallel forward
+# ---------------------------------------------------------------------------
+def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
+    return cfg.window if kind == "local" else None
+
+
+def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                  ffn_kind: str, positions: torch.Tensor, dtype
+                  ) -> torch.Tensor:
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = A.gqa_forward(p["mix"], h, cfg, window=_window(cfg, kind),
+                      positions=positions, dtype=dtype)
+    x = x + h
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype)
+
+
+def decoder_forward(params, x: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor, dtype) -> torch.Tensor:
+    for p, kind, ffn_kind in _layers(params, cfg):
+        x = block_forward(p, x, cfg, kind, ffn_kind, positions, dtype)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                dtype, device):
+    _check_kind(kind)
+    # local layers only ever need a window-sized cache
+    n = max_len if kind == "attn" else min(max_len, cfg.window or max_len)
+    return A.gqa_init_cache(cfg, batch, n, dtype, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> Dict:
+    """Zeroed caches shaped like the parameters: ``prefix`` / ``rem``
+    lists, ``scan`` a list over repeats of per-pattern-position dicts."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+
+    def per_block(kind):
+        return _kind_cache(cfg, kind, batch, max_len, dtype, device)
+
+    cache: Dict[str, Any] = {}
+    if cfg.first_k_dense:
+        cache["prefix"] = [per_block(cfg.pattern[0])
+                           for _ in range(cfg.first_k_dense)]
+    if cfg.full_repeats:
+        cache["scan"] = [{str(p): per_block(kind)
+                          for p, kind in enumerate(cfg.pattern)}
+                         for _ in range(cfg.full_repeats)]
+    if cfg.remainder_layers:
+        cache["rem"] = [per_block(cfg.pattern[i % len(cfg.pattern)])
+                        for i in range(cfg.remainder_layers)]
+    return cache
+
+
+def _caches(cache: Dict, cfg: ArchConfig):
+    """Every block's cache dict, in the order of ``_layers``."""
+    yield from cache.get("prefix", [])
+    for layer in cache.get("scan", []):
+        for p_i in range(len(cfg.pattern)):
+            yield layer[str(p_i)]
+    yield from cache.get("rem", [])
+
+
+def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
+                  ffn_kind: str, dtype):
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind == "local" and cfg.window is not None:
+        # the local cache is a rolling window: once full, older entries
+        # roll off and the new token takes the last slot, while RoPE
+        # keeps the absolute position so relative phases stay correct
+        wlen = cache["k"].shape[2]
+        if cur_len >= wlen:
+            for name in ("k", "v"):
+                cache[name].copy_(torch.roll(cache[name], -1, dims=2))
+        h, cache = A.gqa_decode(p["mix"], h, cache, min(cur_len, wlen - 1),
+                                cfg, window=None, dtype=dtype,
+                                rope_pos=cur_len)
+    else:
+        h, cache = A.gqa_decode(p["mix"], h, cache, cur_len, cfg,
+                                window=None, dtype=dtype)
+    x = x + h
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype), cache
+
+
+def decoder_decode_step(params, cache, x: torch.Tensor, cur_len: int,
+                        cfg: ArchConfig, dtype) -> Tuple[torch.Tensor, Dict]:
+    """One token through every layer; ``cache`` is updated in place and
+    returned."""
+    for (p, kind, ffn_kind), c in zip(_layers(params, cfg),
+                                      _caches(cache, cfg)):
+        x, _ = _block_decode(p, x, c, cur_len, cfg, kind, ffn_kind, dtype)
+    return x, cache
+
+
+def map_cache(cache, fn):
+    """Apply ``fn`` to every tensor of a cache tree (dicts / lists)."""
+    if isinstance(cache, torch.Tensor):
+        return fn(cache)
+    if isinstance(cache, dict):
+        return {k: map_cache(v, fn) for k, v in cache.items()}
+    return [map_cache(v, fn) for v in cache]

@@ -28,7 +28,10 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch.relational, repro_torch.carry, "
-            "repro_torch.kernels.filter_project.ops; "
+            "repro_torch.kernels.filter_project.ops, repro_torch.configs, "
+            "repro_torch.models, repro_torch.serving.engine, "
+            "repro_torch.kernels.decode_attention.ops, "
+            "repro_torch.kernels.flash_attention.ops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
@@ -201,3 +204,61 @@ def test_a_failed_batched_group_raises_on_the_card():
     cpu_err = RuntimeError("any error")
     physical._group_failed(sess._fresh_ctx(), group, cpu_err, failures)
     assert failures == {3: cpu_err}
+
+
+# -- the attention kernels: no plain-version fallback off the CPU --------
+@pytest.mark.parametrize("which", ["decode", "flash"])
+def test_attention_wrappers_raise_off_the_cpu(which):
+    """Only a CPU tensor takes the plain version; any other device goes
+    to the kernel's checks (here: meta tensors are refused)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    meta = dict(device="meta")
+    before = (dict(DK.LAUNCHES), dict(FK.LAUNCHES))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if which == "decode":
+            DK.decode_attention(torch.empty(1, 4, 32, **meta),
+                                torch.empty(1, 2, 64, 32, **meta),
+                                torch.empty(1, 2, 64, 32, **meta),
+                                torch.empty(1, dtype=torch.int32, **meta))
+        else:
+            FK.flash_attention(torch.empty(1, 4, 8, 32, **meta),
+                               torch.empty(1, 2, 8, 32, **meta),
+                               torch.empty(1, 2, 8, 32, **meta))
+    assert (DK.LAUNCHES, FK.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("which", ["decode", "flash"])
+def test_a_failing_attention_kernel_surfaces_from_the_engine(monkeypatch,
+                                                             which):
+    """A raising kernel wrapper (as a failed launch on the card raises)
+    propagates out of ServingEngine.run_batch / Model.forward: nothing
+    degrades to the plain attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import GenerationRequest, ServingEngine
+
+    def failing(*args, **kwargs):
+        raise RuntimeError(f"{which}_attention launch failed: CUDA error 700")
+
+    from dataclasses import replace
+
+    # on CPU tensors attn_impl="pallas" routes through the wrappers,
+    # which CUDA tensors always take
+    cfg = replace(get_config("granite-8b-smoke"), attn_impl="pallas")
+    params = init_params(cfg, 0, device="cpu")
+    prompt = np.arange(40, dtype=np.int32)
+    if which == "decode":
+        monkeypatch.setattr(DO, "decode_attention", failing)
+        eng = ServingEngine(cfg, params, pool_budget_bytes=1 << 20,
+                            block_size=16, max_len=64)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            eng.run_batch([GenerationRequest(0, prompt, 2),
+                           GenerationRequest(1, prompt.copy(), 2)])
+    else:
+        monkeypatch.setattr(FO, "flash_attention", failing)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            forward(params, torch.from_numpy(prompt[None]).long(), cfg)

@@ -16,6 +16,7 @@ Parity contract:
     hundred rows).
 """
 import numpy as np
+import pytest
 import torch
 
 import repro.relational as R
@@ -92,3 +93,14 @@ def run_both(catalog, fmt, jq, tq, passes=2):
         out.append((stream(js, jq(js), j_strict),
                     stream(ts, tq(ts), t_strict)))
     return out
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread: the LLM tests launch
+    thousands of tiny ops, which gain nothing from intra-op threads and
+    stall when parallel test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
