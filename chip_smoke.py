@@ -13,6 +13,13 @@ process per source, all at once) and drives both of the port's paths:
   shapes, streams the 50 TPC-DS queries at SF1 scale through
   ``QueryService`` windows on the card and on the CPU (results and MQO
   decisions must agree), and runs the literal-program route;
+* CSV decode and the async front (A0, A): holds ``parse_i32`` /
+  ``parse_f32`` bitwise against their plain versions and times them at
+  SF1; A0 streams the 50 queries through ``AsyncQueryService`` on the
+  SF1 CSV tables (tables and MQO decisions must equal the CPU sync
+  front's); A serves 32 open-loop clients (two tenants, three template
+  families) in fixed and adaptive windows, every table equal to the
+  CPU's;
 * attention (S1): holds ``decode_attention`` and ``flash_attention``
   against their plain versions over a sweep of masks, GQA groups, head
   dims and dtypes, and times them at the serving path's shapes beside
@@ -23,10 +30,11 @@ process per source, all at once) and drives both of the port's paths:
   CPU, and checks ``Model.forward`` with the flash kernel against the
   plain attention on the card.
 
-``--only relational|attention|serving`` runs one group (for bring-up);
-with no argument every phase runs.  It prints one line per phase.  The
-line before the last is the kernels' JSON; the last line is the device
-JSON.  Any failure exits non-zero; without CUDA it exits non-zero before
+``--only relational|async|attention|serving`` runs one group (for
+bring-up: ``relational`` leaves out A0 and A, ``async`` runs the CSV
+decoders, A0 and A); with no argument every phase runs.  It prints one
+line per phase.  The line before the last is the kernels' JSON; the
+last line is the device JSON.  Any failure exits non-zero; without CUDA it exits non-zero before
 any result.  The script imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -45,10 +53,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SF1_STORE_SALES_ROWS = 2_880_404   # TPC-DS SF1 store_sales cardinality
 FILTER_SCAN_CU = "src/repro_torch/kernels/filter_project/csrc/filter_scan.cu"
+CSV_PARSE_CU = "src/repro_torch/kernels/filter_project/csrc/csv_parse.cu"
 DECODE_CU = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
 FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
-SOURCES = (FILTER_SCAN_CU, DECODE_CU, FLASH_CU)
+SOURCES = (FILTER_SCAN_CU, CSV_PARSE_CU, DECODE_CU, FLASH_CU)
 WINDOW = 8                         # QueryService max_batch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # H100 SXM f32 outside tensor cores
@@ -325,16 +334,159 @@ def kernel_timings(device) -> dict:
         if err != 0:
             raise AssertionError(f"{name} disagrees at the main shapes")
         ms = time_ms(kern)
+        device_ms = profiled_ms(kern, ("filter_scan_kernel",))
         plain_ms = time_ms(plain)
         nbytes = nrows * row_bytes + n * cap + n * n_blocks * 4
         ops = 3 * nrows * n      # two compares and one and per live row
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms,
+        out[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations", max_abs_err=err,
                          shape=f"N={cap} nrows={nrows} n_q={n} block={block}")
+    return out
+
+
+def profiled_ms(fn, marks, reps: int = 20):
+    """Device time per call of ``fn`` of the kernels whose names hold one
+    of ``marks``, from ``torch.profiler`` over ``reps`` calls after one
+    unprofiled call; None when the profiler saw none of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(m in e.key for m in marks))
+    return us / reps / 1e3 if us else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+# the CSV decoders: name, wrapper, plain version, field width
+def parse_kernels():
+    from repro_torch.kernels.filter_project import kernel as K
+    from repro_torch.kernels.filter_project import ref as R
+
+    return (("parse_i32", K.parse_i32, R.parse_i32_ref, 10),
+            ("parse_f32", K.parse_f32, R.parse_f32_ref, 8))
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def ascii_digits(values, width: int):
+    """Zero-padded ASCII digits of non-negative ``values``."""
+    import numpy as np
+
+    out = np.zeros((len(values), width), np.uint8)
+    v = np.asarray(values, np.int64)
+    for k in range(width - 1, -1, -1):
+        out[:, k] = v % 10 + 48
+        v = v // 10
+    return out
+
+
+def parse_sweep(device) -> int:
+    """Both CSV decoders bitwise against their plain versions, on the
+    card and on the CPU: fields of a raw (n, 90) row matrix at odd
+    offsets (strided views) and one contiguous field, values up to
+    9,999,999,999, rows of ASCII zeros and rows of zero bytes, n a
+    multiple of the 256-row block and not.  Returns the cases checked."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    checked = 0
+    for n in (4096, 5001, 300, 1):
+        raw = rng.integers(0, 256, (n, 90)).astype(np.uint8)
+        fields = {"parse_i32": (3, 41), "parse_f32": (17, 77)}
+        for off in fields["parse_i32"]:
+            vals = rng.integers(0, 10**10, n)
+            vals[:3] = [9_999_999_999, 2**31 - 1, 2**31][:n]
+            raw[:, off:off + 10] = ascii_digits(vals, 10)
+        for off in fields["parse_f32"]:
+            vals = rng.integers(0, 10**8, n)
+            vals[:1] = 99_999_999
+            raw[:, off:off + 8] = ascii_digits(vals, 8)
+        raw[n // 2:n // 2 + n // 8] = 48          # every digit '0'
+        if n // 5:
+            raw[n - n // 5:] = 0                  # padding rows
+        host = torch.from_numpy(raw)
+        card = host.to(device)
+        for name, kern, plain, width in parse_kernels():
+            views = [(card[:, o:o + width], host[:, o:o + width])
+                     for o in fields[name]]
+            views.append((card[:, fields[name][0]:fields[name][0] + width]
+                          .contiguous(),
+                          host[:, fields[name][0]:fields[name][0] + width]))
+            for dev_view, host_view in views:
+                got = kern(dev_view)
+                want = plain(dev_view)
+                want_cpu = plain(host_view)
+                torch.cuda.synchronize()
+                if not (torch.equal(_bits(got), _bits(want)) and
+                        torch.equal(_bits(got).cpu(), _bits(want_cpu))):
+                    raise AssertionError(
+                        f"{name} disagrees with its plain version (n={n}, "
+                        f"stride {tuple(dev_view.stride())})")
+                checked += 1
+    return checked
+
+
+def parse_timings(device) -> dict:
+    """Both CSV decoders at SF1 capacity: the ss_quantity (i32) and
+    ss_sales_price (f32) fields of store_sales' raw rows (2^22 x 90
+    bytes on the card, zero bytes past the live rows), as the CSV scan
+    hands them over.  The bound counts each live row's field once and
+    its 4-byte output once."""
+    import numpy as np
+    import torch
+
+    from repro_torch.relational.datagen import to_csv_bytes
+    from repro_torch.relational.schema import next_pow2
+    from repro_torch.relational.tpcds import generate_tpcds_catalog
+
+    schema, nrows, cols = generate_tpcds_catalog(SF1_STORE_SALES_ROWS)[
+        "store_sales"]
+    host = np.zeros((next_pow2(nrows), schema.row_csv_bytes), np.uint8)
+    host[:nrows] = to_csv_bytes(schema, cols, nrows)
+    raw = torch.from_numpy(host).to(device)
+    offsets = schema.csv_offsets()
+    out = {}
+    for (name, kern, plain, width), field in zip(
+            parse_kernels(), ("ss_quantity", "ss_sales_price")):
+        off, w = offsets[field]
+        view = raw[:, off:off + w]
+        got, want = kern(view), plain(view)
+        torch.cuda.synchronize()
+        if not torch.equal(_bits(got), _bits(want)):
+            raise AssertionError(f"{name} disagrees at SF1")
+        bytes_ms = nrows * (width + 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * width * nrows / F32_OPS_PER_S * 1e3
+        out[name] = dict(
+            ms=time_ms(lambda: kern(view)),
+            device_ms=profiled_ms(lambda: kern(view), (f"{name}_kernel",)),
+            plain_ms=time_ms(lambda: plain(view)),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            max_abs_err=0.0,
+            shape=f"{field}: ({raw.shape[0]}, {w}) view at offset {off} "
+                  f"of ({raw.shape[0]}, {raw.shape[1]}) raw rows, "
+                  f"{nrows} live")
     return out
 
 
@@ -430,7 +582,8 @@ def device_time(fn, device, mark: str = "filter_scan_kernel") -> dict:
 
 def main_path(K, cuda, scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
     """Phase 4: SF1 TPC-DS stream, cold then warm, columnar then CSV,
-    on the card and on the CPU; results and decisions must agree."""
+    on the card and on the CPU; results and decisions must agree.  The
+    CPU's CSV passes are kept (``host_csv``) as phase A0's reference."""
     import torch
 
     from repro_torch.device import synchronize
@@ -439,7 +592,7 @@ def main_path(K, cuda, scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
 
     cpu = torch.device("cpu")
     stats = {"launches": {}, "passes": [], "reference": {}, "batched": 0,
-             "events": 0}
+             "events": 0, "host_csv": []}
     for fmt in ("columnar", "csv"):
         card = build_tpcds_session(scale_rows=scale_rows, fmt=fmt,
                                    device=cuda)
@@ -457,6 +610,8 @@ def main_path(K, cuda, scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
             for k, v in K.LAUNCHES.items():
                 stats["launches"][k] = stats["launches"].get(k, 0) + v
             want = run_stream(host, tpcds_queries(host), lambda: None)
+            if fmt == "csv":     # phase A0's reference
+                stats["host_csv"].append(want)
             for i, (a, b) in enumerate(zip(got["tables"], want["tables"])):
                 compare_tables(a, b, f"{fmt}/{phase}/q{i}")
             if got["decisions"] != want["decisions"]:
@@ -551,6 +706,265 @@ def literal_route(K, reference, cuda,
 
 
 # ---------------------------------------------------------------------------
+# phases A0 and A: the asyncio serving front over the SF1 CSV tables
+# ---------------------------------------------------------------------------
+# Phase A's traffic is benchmarks/bench_async.py's, put on store_sales:
+# open-loop clients with seeded exponential gaps, three template
+# families with a fresh literal per arrival, two tenants.
+ASYNC_CLIENTS, ASYNC_PER_CLIENT = 32, 8
+ASYNC_GAP_S = 0.08                 # mean gap a client: ~400 queries/s
+ASYNC_SEED = 1000
+ASYNC_MODES = (
+    ("fixed", dict(max_batch=8, max_wait_s=0.02)),
+    ("adaptive", dict(max_batch=8, max_wait_s=0.02, adaptive=True,
+                      slo_p99_s=2.0, max_batch_cap=64,
+                      exec_default_s=0.05)),
+)
+ASYNC_TIMEOUT_S = 600.0            # a wedged window fails the phase
+
+
+def host_csv_passes(scale_rows: int = SF1_STORE_SALES_ROWS) -> list:
+    """The CPU sync front's cold and warm passes of the 50 TPC-DS
+    queries on the CSV tables (phase A0's reference when the main path
+    did not run)."""
+    from repro_torch.relational.tpcds import (build_tpcds_session,
+                                              tpcds_queries)
+
+    host = build_tpcds_session(scale_rows=scale_rows, fmt="csv",
+                               device="cpu")
+    host.enable_tracing()
+    return [run_stream(host, tpcds_queries(host), lambda: None)
+            for _ in range(2)]
+
+
+def async_fixed_windows(K, device, want_passes,
+                        scale_rows: int = SF1_STORE_SALES_ROWS) -> list:
+    """Phase A0: one client submits the 50 TPC-DS queries through
+    ``AsyncQueryService`` on the SF1 CSV session, cold then warm, in
+    windows that only the count (8) or ``flush()`` closes.  Each table
+    and each query's and window's MQO decisions must equal the CPU sync
+    front's (``want_passes``).  Returns per pass the launches and the
+    throughput."""
+    import asyncio
+
+    from repro_torch.relational import AsyncConfig, AsyncQueryService
+    from repro_torch.relational.observe import mqo_decision, mqo_trace
+    from repro_torch.relational.tpcds import (build_tpcds_session,
+                                              tpcds_queries)
+
+    sess = build_tpcds_session(scale_rows=scale_rows, fmt="csv",
+                               device=device)
+    sess.enable_tracing()
+    cfg = AsyncConfig(max_batch=WINDOW, max_wait_s=3600.0)
+
+    async def serve(queries):
+        async with AsyncQueryService(sess, config=cfg) as svc:
+            t0 = time.perf_counter()
+            handles = [await svc.submit(q) for q in queries]
+            await svc.flush()
+            tables = await asyncio.wait_for(asyncio.gather(*handles),
+                                            ASYNC_TIMEOUT_S)
+            return handles, tables, time.perf_counter() - t0
+
+    out = []
+    for phase, want in zip(("cold", "warm"), want_passes):
+        K.reset_launches()
+        handles, tables, seconds = asyncio.run(serve(tpcds_queries(sess)))
+        launched = dict(K.LAUNCHES)
+        for i, (a, b) in enumerate(zip(tables, want["tables"])):
+            compare_tables(a, b, f"async/{phase}/q{i}")
+        decisions = [mqo_decision(h._inner) for h in handles]
+        decisions.append(mqo_trace(sess.telemetry().tracer))
+        if len(tables) != len(want["tables"]) \
+                or decisions != want["decisions"]:
+            bad = [i for i, (x, y) in enumerate(
+                zip(decisions, want["decisions"])) if x != y]
+            raise AssertionError(f"async/{phase}: MQO decisions differ from "
+                                 f"the CPU sync front's at {bad}")
+        out.append(dict(phase=phase, qps=len(tables) / seconds,
+                        launches=launched))
+    events = sess.telemetry().registry.value("events.total")
+    if events:
+        raise AssertionError(f"phase A0 logged {events} DegradationEvents")
+    return out
+
+
+def async_arrivals(seed0: int = ASYNC_SEED) -> list:
+    """Per client, its arrivals [(gap s, family, literals)], each client
+    drawing from its own seeded generator."""
+    import numpy as np
+
+    out = []
+    for i in range(ASYNC_CLIENTS):
+        rng = np.random.default_rng(seed0 + i)
+        out.append([(float(rng.exponential(ASYNC_GAP_S)), (i + k) % 3,
+                     (int(rng.integers(1, 99)), int(rng.integers(1, 2000)),
+                      int(rng.integers(0, 100))))
+                    for k in range(ASYNC_PER_CLIENT)])
+    return out
+
+
+def family_query(sess, fam: int, lits: tuple):
+    """One arrival of a template family, with its fresh literals."""
+    from repro_torch.relational import expr as E
+
+    qty, item, store = lits
+    t = sess.table("store_sales")
+    if fam == 0:
+        return t.filter(E.cmp("ss_quantity", ">", qty)).project(
+            "ss_item_sk", "ss_quantity")
+    if fam == 1:
+        return t.filter(E.cmp("ss_item_sk", "<", item)).project(
+            "ss_item_sk", "ss_sales_price")
+    return t.filter(E.and_(E.cmp("ss_quantity", ">", qty),
+                           E.cmp("ss_store_sk", ">", store))).project(
+        "ss_quantity", "ss_net_profit")
+
+
+def async_reference(arrivals, scale_rows: int = SF1_STORE_SALES_ROWS):
+    """Phase A's plans through the CPU sync front in windows of 8; the
+    tables in (client, arrival) order."""
+    from repro_torch.relational.tpcds import build_tpcds_session
+
+    host = build_tpcds_session(scale_rows=scale_rows, fmt="csv",
+                               device="cpu")
+    svc = host.service(max_batch=WINDOW)
+    handles = [svc.submit(family_query(host, fam, lits))
+               for client in arrivals for _, fam, lits in client]
+    svc.flush()
+    return [h.result() for h in handles]
+
+
+def _prime(sess) -> None:
+    """What bench_async._prime does: two batches of the three families
+    through the MQO path, outside the measured stream."""
+    sess.run_batch([family_query(sess, f, (10 + f, 100 + f, 5 + f))
+                    for f in range(3)], mqo=True)
+    sess.run_batch([family_query(sess, f, (90 - f, 1900 - f, 95 - f))
+                    for f in range(3)], mqo=True)
+
+
+def async_open_loop(K, device, mode: str, cfg_kw: dict, arrivals, want,
+                    scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
+    """Phase A, one mode: the open-loop clients on a primed SF1 CSV
+    session.  Raises unless every handle resolved, none failed, every
+    table equals the CPU's, no DegradationEvent was logged and the
+    memory audit is clean.  Returns the throughput, latency p50 / p99,
+    mean window size, tenants' report and the launches of the run."""
+    import asyncio
+
+    from repro_torch.device import synchronize
+    from repro_torch.relational import (AsyncConfig, AsyncQueryService,
+                                        TenantQuota)
+    from repro_torch.relational.tpcds import build_tpcds_session
+
+    sess = build_tpcds_session(scale_rows=scale_rows, fmt="csv",
+                               device=device)
+    _prime(sess)
+    synchronize(device)
+    reg = sess.telemetry().registry
+    closed0 = reg.value("windows.closed")
+    quota = TenantQuota(max_inflight=64)
+    cfg = AsyncConfig(quotas={"team0": quota, "team1": quota}, **cfg_kw)
+    handles, tables, lats, waiters = {}, {}, {}, []
+
+    async def client(svc, i):
+        for k, (gap, fam, lits) in enumerate(arrivals[i]):
+            await asyncio.sleep(gap)
+            t0 = time.perf_counter()
+            h = await svc.submit(family_query(sess, fam, lits),
+                                 tenant=f"team{i % 2}")
+            handles[i, k] = h
+
+            async def wait(h=h, t0=t0, key=(i, k)):
+                try:
+                    tables[key] = await h
+                finally:
+                    lats[key] = time.perf_counter() - t0
+
+            waiters.append(asyncio.create_task(wait()))
+
+    async def go():
+        async with AsyncQueryService(sess, config=cfg) as svc:
+            t0 = time.perf_counter()
+            await asyncio.gather(*(client(svc, i)
+                                   for i in range(ASYNC_CLIENTS)))
+            await svc.flush()
+            await asyncio.wait_for(asyncio.gather(
+                *waiters, return_exceptions=True), ASYNC_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            report = svc.metrics_report()
+        return wall, report
+
+    K.reset_launches()
+    wall, report = asyncio.run(go())
+    launched = dict(K.LAUNCHES)
+    n = ASYNC_CLIENTS * ASYNC_PER_CLIENT
+    unresolved = [key for key, h in handles.items() if not h.done]
+    failed = {key: repr(h.error) for key, h in handles.items() if h.failed}
+    if len(handles) != n or unresolved or failed:
+        raise AssertionError(f"async/{mode}: {len(handles)} of {n} handles, "
+                             f"unresolved {unresolved}, failed {failed}")
+    for key, h in handles.items():
+        i, k = key
+        compare_tables(tables[key], want[i * ASYNC_PER_CLIENT + k],
+                       f"async/{mode}/client{i}/q{k}")
+    events = reg.value("events.total")
+    violations = sess.memory.audit()
+    if events or violations:
+        raise AssertionError(f"async/{mode}: {events} DegradationEvents, "
+                             f"audit {violations}")
+    windows = reg.value("windows.closed") - closed0
+    lat = list(lats.values())
+    tenants = {t: {"submitted": sec.get("queries.submitted"),
+                   "succeeded": sec.get("queries.succeeded"),
+                   "bytes": sec.get("bytes_total"),
+                   "p99_s": (sec.get("latency") or {}).get("p99")}
+               for t, sec in report["tenants"].items()}
+    del sess
+    return dict(mode=mode, n=n, wall=wall, qps=n / wall,
+                p50=percentile(lat, 0.5), p99=percentile(lat, 0.99),
+                windows=windows, mean_window=n / max(windows, 1),
+                tenants=tenants, launches=launched)
+
+
+def async_phases(cuda, smi: str, want_passes) -> dict:
+    """Phases A0 and A; returns the launches of each kernel over both,
+    counted from 0 just before each driven run and read just after."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for p in async_fixed_windows(K, cuda, want_passes):
+        add(p["launches"])
+        log(f"async A0 csv/{p['phase']}: {p['qps']:.2f} queries/s on the "
+            f"card, launches {p['launches']}; tables and MQO decisions "
+            f"(per query and per window) equal the CPU sync front's [{smi}]")
+    arrivals = async_arrivals()
+    want = async_reference(arrivals)
+    for mode, cfg_kw in ASYNC_MODES:
+        r = async_open_loop(K, cuda, mode, cfg_kw, arrivals, want)
+        add(r["launches"])
+        missing = [k for k in ("parse_i32", "parse_f32", "filter_scan_batch")
+                   if r["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"async/{mode} never launched {missing}")
+        log(f"async A {mode}: {r['n']} queries from {ASYNC_CLIENTS} "
+            f"open-loop clients in {r['wall']:.3f} s, {r['qps']:.2f} "
+            f"queries/s, latency p50 {r['p50'] * 1e3:.1f} ms p99 "
+            f"{r['p99'] * 1e3:.1f} ms, {r['windows']} windows (mean "
+            f"{r['mean_window']:.2f} queries), launches {r['launches']}, "
+            f"tenants {json.dumps(r['tenants'], sort_keys=True)}; every "
+            f"handle resolved, none failed, tables equal the CPU's, 0 "
+            f"DegradationEvents, audit clean [{smi}]")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase S1: attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 # Tolerances of the attention kernels against their plain versions on the
@@ -633,9 +1047,13 @@ def attention_sweep(device) -> dict:
     return dict(worst=worst, cases=cases)
 
 
-def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str) -> dict:
-    """Times of the kernel, its plain version and one library call on
-    the same inputs, with the bound of the function's work."""
+def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
+            marks: tuple) -> dict:
+    """Times of the kernel (CUDA events around the wrapper, and the
+    device time of its kernels ``marks`` from the profiler), its plain
+    version and one library call (CUDA events, and the device time of
+    all its kernels) on the same inputs, with the bound of the
+    function's work."""
     import torch
 
     err = float((kern().float() - plain().float()).abs().max())
@@ -644,8 +1062,11 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str) -> dict:
         raise AssertionError(f"kernel disagrees at {shape}: {err}")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_OPS_PER_S * 1e3
-    return dict(ms=time_ms(kern), plain_ms=time_ms(plain),
-                library_ms=time_ms(lib), bound_ms=max(bytes_ms, ops_ms),
+    return dict(ms=time_ms(kern), device_ms=profiled_ms(kern, marks),
+                plain_ms=time_ms(plain), library_ms=time_ms(lib),
+                # every device event of the library call ("" matches all)
+                library_device_ms=profiled_ms(lib, ("",)),
+                bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 max_abs_err=err, shape=shape)
 
@@ -683,7 +1104,8 @@ def attention_timings(device) -> dict:
             2 * q.numel() * 2 + 2 * hkv * live * d * 2 + 4,
             4 * hq * live * d,
             f"q (1, {hq}, {d}), cache (1, {hkv}, 1024, {d}) bf16, "
-            f"kv_len {live}")
+            f"kv_len {live}",
+            ("decode_split_kernel", "decode_combine_kernel"))
     t = 256
     q = _randn((1, hq, t, d), bf16, device, gen)
     k = _randn((1, hkv, t, d), bf16, device, gen)
@@ -695,7 +1117,8 @@ def attention_timings(device) -> dict:
                                                enable_gqa=True),
         (2 * q.numel() + 2 * k.numel()) * 2,
         4 * hq * d * (t * (t + 1) // 2),
-        f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal")
+        f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal",
+        ("flash_fwd_kernel",))
     return out
 
 
@@ -887,39 +1310,67 @@ def serving_path(device, smi: str) -> dict:
                 forward_top=top)
 
 
-def relational_phases(cuda, smi: str) -> list:
-    """Phases 3-5: the filter kernels and the TPC-DS stream; returns the
-    kernels' JSON entries."""
+def relational_phases(cuda, smi: str, main_path_too: bool = True,
+                      async_too: bool = True) -> list:
+    """Phases 3-5 (``main_path_too``: the filter kernels, the TPC-DS
+    stream and the literal route), the CSV decoders against their plain
+    versions and their times, and phases A0 and A (``async_too``);
+    returns the kernels' JSON entries."""
     from repro_torch.kernels.filter_project import kernel as K
 
-    checked = kernel_sweep(cuda)
-    log(f"kernels vs plain versions: bitwise equal over "
-        f"{checked['filter_scan']} literal and "
-        f"{checked['filter_scan_batch']} slotted programs")
-    timings = kernel_timings(cuda)
+    timings = {}
+    if main_path_too:
+        checked = kernel_sweep(cuda)
+        log(f"kernels vs plain versions: bitwise equal over "
+            f"{checked['filter_scan']} literal and "
+            f"{checked['filter_scan_batch']} slotted programs")
+        timings.update(kernel_timings(cuda))
+    log(f"CSV decoders vs plain versions: parse_i32 and parse_f32 bitwise "
+        f"equal on the card and on the CPU over {parse_sweep(cuda)} cases")
+    timings.update(parse_timings(cuda))
     for name, t in timings.items():
-        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms (profiler "
+            f"device time {fmt_ms(t['device_ms'])}), plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}) [{smi}]")
 
-    stats = main_path(K, cuda)
-    literal = literal_route(K, stats["reference"], cuda)
-    log(f"literal route: filter_scan launched {literal['filter_scan']} "
-        f"times, results equal the main path's")
+    launches = {}
+    host_csv = None
+    if main_path_too:
+        stats = main_path(K, cuda)
+        launches["main"], host_csv = stats["launches"], stats["host_csv"]
+        launches["literal-route"] = literal_route(K, stats["reference"],
+                                                  cuda)
+        log(f"literal route: filter_scan launched "
+            f"{launches['literal-route']['filter_scan']} times, results "
+            f"equal the main path's")
+        del stats
+    if async_too:
+        launches["async"] = async_phases(cuda, smi,
+                                         host_csv or host_csv_passes())
     kernels = []
-    for name, launches, path, line in (
-            ("filter_scan_batch",
-             stats["launches"].get("filter_scan_batch", 0), "main",
+    for name, path, src, line in (
+            ("filter_scan_batch", "main", FILTER_SCAN_CU,
              "src/repro/kernels/filter_project/kernel.py:122"),
-            ("filter_scan", literal["filter_scan"], "literal-route",
-             "src/repro/kernels/filter_project/kernel.py:57")):
+            ("filter_scan", "literal-route", FILTER_SCAN_CU,
+             "src/repro/kernels/filter_project/kernel.py:57"),
+            ("parse_i32", "async", CSV_PARSE_CU,
+             "src/repro/kernels/filter_project/kernel.py:179"),
+            # no TPU kernel: the JAX package decodes this field with XLA
+            ("parse_f32", "async", CSV_PARSE_CU,
+             "src/repro/relational/physical.py:289")):
+        if name not in timings:
+            continue
         t = timings[name]
         kernels.append(dict(
-            name=name, route="cuda", source=FILTER_SCAN_CU, replaces=line,
-            launches=launches, path=path, max_abs_err=t["max_abs_err"],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
-    del stats, literal
+            name=name, route="cuda", source=src, replaces=line,
+            launches=launches.get(path, {}).get(name, 0), path=path,
+            launches_by_path={p: c.get(name, 0)
+                              for p, c in launches.items()},
+            max_abs_err=t["max_abs_err"], ms=t["ms"],
+            device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None, shape=t["shape"]))
     return kernels
 
 
@@ -937,8 +1388,10 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
         f"{ATTN_ATOL['torch.bfloat16']})")
     timings = attention_timings(cuda)
     for name, t in timings.items():
-        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms, bound "
+        log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms (profiler "
+            f"device time {fmt_ms(t['device_ms'])}), plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
+            f"(device time {fmt_ms(t['library_device_ms'])}), bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{smi}]")
     launches = serving_path(cuda, smi)["launches"] if serve else {}
     kernels = []
@@ -953,9 +1406,10 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
             launches=launches.get(name, 0), path="serving",
             max_abs_err=max(t["max_abs_err"],
                             sweep["worst"][name]),
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            shape=t["shape"])
+            ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+            library_device_ms=t["library_device_ms"], shape=t["shape"])
         if name == "decode_attention":
             entry["kv1024"] = {k: v for k, v in
                                timings["decode_attention/kv1024"].items()
@@ -966,7 +1420,7 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("relational", "attention",
+    ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving"),
                     help="run one group of phases (bring-up); default all")
     args = ap.parse_args(argv)
@@ -1003,8 +1457,10 @@ def main(argv=None) -> int:
 
     cuda = torch.device("cuda")
     kernels = []
-    if args.only in (None, "relational"):
-        kernels += relational_phases(cuda, smi)
+    if args.only in (None, "relational", "async"):
+        kernels += relational_phases(
+            cuda, smi, main_path_too=args.only != "async",
+            async_too=args.only != "relational")
         torch.cuda.empty_cache()
     if args.only in (None, "attention", "serving"):
         kernels += attention_phases(cuda, smi,

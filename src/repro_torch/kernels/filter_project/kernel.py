@@ -1,12 +1,14 @@
-"""Fused columnar filter-scan kernels for Hopper (CUDA C++, ``csrc/``).
+"""Fused columnar filter-scan and CSV-decode kernels for Hopper (CUDA
+C++, ``csrc/``).
 
 The predicate program is encoded on the host into a small bytecode
 (:func:`encode_program`) that one compiled kernel interprets per row, so
 ``nvcc`` runs once for every program the engine produces.  The
 wrappers :func:`filter_scan` and :func:`filter_scan_batch` launch that
-kernel for CUDA tensors and take the plain torch versions in ``ref.py``
-only for CPU tensors.  Each launch adds one to its wrapper's entry in
-:data:`LAUNCHES`.
+kernel for CUDA tensors, and :func:`parse_i32` / :func:`parse_f32` the
+fixed-width field decoders of ``csrc/csv_parse.cu``; each takes the
+plain torch version in ``ref.py`` only for CPU tensors.  Each launch
+adds one to its wrapper's entry in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from ...relational.expr import fold_int_cmp
 from .. import _build
 from .ref import (_CMP_OPSYM, _SYM_CMP, PredProgram, filter_scan_batch_ref,
-                  filter_scan_ref)
+                  filter_scan_ref, parse_f32_ref, parse_i32_ref)
 
 DEFAULT_BLOCK = 2048   # rows per count-block (one CUDA block each)
 MAX_COLS = 16          # predicate columns one launch can read
@@ -29,6 +31,7 @@ MAX_STACK = 64         # boolean stack depth (bits of a 64-bit register)
 _MAX_SMEM = 48 * 1024  # static-launch shared memory limit, bytes
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "filter_scan.cu"
+_CSV_SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_parse.cu"
 
 # opcodes: keep in step with enum Op in csrc/filter_scan.cu
 OP_CMP_INT_LIT, OP_CMP_F32_LIT, OP_CMP_SLOT_I, OP_CMP_SLOT_F = 0, 1, 2, 3
@@ -38,7 +41,8 @@ _CMP_CODE = {"lt": 0, "le": 1, "gt": 2, "ge": 3, "eq": 4, "ne": 5}
 _CMP_NAME = {v: k for k, v in _CMP_CODE.items()}
 _TYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
-LAUNCHES = {"filter_scan": 0, "filter_scan_batch": 0}
+LAUNCHES = {"filter_scan": 0, "filter_scan_batch": 0, "parse_i32": 0,
+            "parse_f32": 0}
 
 
 def reset_launches() -> None:
@@ -217,6 +221,7 @@ def decode_program(enc: EncodedProgram) -> PredProgram:
 
 
 _LIB: Optional[ctypes.CDLL] = None
+_CSV_LIB: Optional[ctypes.CDLL] = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -234,6 +239,18 @@ def _lib() -> ctypes.CDLL:
         lib.filter_scan_batch_launch.restype = i
         _LIB = lib
     return _LIB
+
+
+def _csv_lib() -> ctypes.CDLL:
+    global _CSV_LIB
+    if _CSV_LIB is None:
+        lib = _build.load(_CSV_SOURCE)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.parse_i32_launch, lib.parse_f32_launch):
+            fn.argtypes = [p, ll, ll, p, p]
+            fn.restype = i
+        _CSV_LIB = lib
+    return _CSV_LIB
 
 
 def _check_columns(columns: Sequence[torch.Tensor], block: int) -> int:
@@ -359,3 +376,49 @@ def filter_scan_batch(columns: Sequence[torch.Tensor],
     _check_launch(rc, "filter_scan_batch")
     LAUNCHES["filter_scan_batch"] += 1
     return mask, counts
+
+
+def _parse(digits: torch.Tensor, width: int, dtype: torch.dtype,
+           name: str) -> torch.Tensor:
+    """Launch the ``name`` decoder over the ``(n, width)`` field view."""
+    dev = digits.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, not {dev.type}")
+    if digits.dtype != torch.uint8 or digits.ndim != 2 \
+            or digits.shape[1] != width:
+        raise ValueError(f"{name} takes (n, {width}) uint8 digits, not "
+                         f"{tuple(digits.shape)} {digits.dtype}")
+    # a field of a raw row matrix: bytes adjacent, rows row_stride apart
+    if digits.stride(1) != 1 or digits.stride(0) < 0:
+        raise ValueError(f"{name} takes rows of adjacent bytes at a "
+                         f"non-negative row stride")
+    n = digits.shape[0]
+    out = torch.empty((n,), dtype=dtype, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_csv_lib(), f"{name}_launch")(
+            digits.data_ptr(), digits.stride(0), n, out.data_ptr(), stream)
+    _check_launch(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def parse_i32(digits: torch.Tensor) -> torch.Tensor:
+    """Fixed-width decimal parse: ``(n, 10)`` uint8 zero-padded ASCII
+    digits -> int32 ``(n,)``, wrapping modulo 2^32 as the plain version
+    does.  ``digits`` may be a field of a raw CSV row matrix
+    (``raw[:, off:off + 10]``): the kernel reads it in place."""
+    if digits.device.type == "cpu":
+        return parse_i32_ref(digits)
+    return _parse(digits, 10, torch.int32, "parse_i32")
+
+
+def parse_f32(digits: torch.Tensor) -> torch.Tensor:
+    """Fractional parse: ``(n, 8)`` uint8 ASCII digits -> float32 in
+    [0, 1), bitwise equal to the plain version; ``digits`` as for
+    :func:`parse_i32`."""
+    if digits.device.type == "cpu":
+        return parse_f32_ref(digits)
+    return _parse(digits, 8, torch.float32, "parse_f32")

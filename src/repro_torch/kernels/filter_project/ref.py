@@ -148,7 +148,25 @@ def filter_scan_batch_ref(columns: Sequence[torch.Tensor],
 
 
 def parse_i32_ref(digits: torch.Tensor) -> torch.Tensor:
-    """(n, 10) uint8 zero-padded decimal digits -> int32."""
+    """(n, 10) uint8 zero-padded decimal digits -> int32.
+
+    Values past 2^31 (and the zero-byte padding rows, whose digits are
+    -48) wrap modulo 2^32."""
     pows = torch.tensor([10**k for k in range(9, -1, -1)],
                         dtype=torch.int64, device=digits.device)
     return ((digits.to(torch.int64) - 48) * pows).sum(dim=1).to(torch.int32)
+
+
+_POW10_F = [10.0**k for k in range(7, -1, -1)]
+
+
+def parse_f32_ref(digits: torch.Tensor) -> torch.Tensor:
+    """(n, 8) uint8 fractional digits -> float32 in [0, 1).
+
+    Accumulates in f32 from the most significant digit, as the JAX
+    package's einsum does on its CPU backend, so both round alike."""
+    d = digits.to(torch.float32) - 48.0
+    acc = torch.zeros(d.shape[0], dtype=torch.float32, device=d.device)
+    for k, p in enumerate(_POW10_F):
+        acc = acc + d[:, k] * p
+    return acc * torch.tensor(1e-8, dtype=torch.float32, device=d.device)

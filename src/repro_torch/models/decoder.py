@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..device import DeviceLike, resolve_device
 from . import attention as A
 from . import ffn as F
 from .common import rmsnorm, rmsnorm_spec
@@ -112,10 +113,12 @@ def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> Dict:
+               device: DeviceLike = None) -> Dict:
     """Zeroed caches shaped like the parameters: ``prefix`` / ``rem``
-    lists, ``scan`` a list over repeats of per-pattern-position dicts."""
+    lists, ``scan`` a list over repeats of per-pattern-position dicts,
+    on ``device`` (``cuda`` unless asked otherwise)."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve_device(device)
 
     def per_block(kind):
         return _kind_cache(cfg, kind, batch, max_len, dtype, device)

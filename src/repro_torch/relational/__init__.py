@@ -2,11 +2,16 @@
 # tensors, the fluent lazy Relation frontend compiled through a canonical
 # plan IR, logical plans, Catalyst-like local optimization, cardinality
 # stats, per-operator execution on the session's device, the MQO
-# integration and the online QueryService front-end (continuous
-# submission + micro-batch MQO windows).  The asyncio front of the JAX
-# package is not ported yet.
+# integration, the online QueryService front-end (continuous
+# submission + micro-batch MQO windows), and the asyncio serving front
+# (background window closer, adaptive windows, per-tenant admission
+# control).
 from . import expr, logical
 from .api import ColExpr, Pred, Relation, as_expr, c, col
+from .async_service import (AdaptiveWindowPolicy, AdmissionController,
+                            AdmissionError, AsyncConfig,
+                            AsyncQueryHandle, AsyncQueryService,
+                            TenantQuota, WindowParams)
 from .canonical import (FALSE, canonicalize_expr, canonicalize_plan,
                         format_plan)
 from .datagen import (generate_columns, make_storage, people_schema,

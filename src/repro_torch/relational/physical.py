@@ -295,27 +295,18 @@ class ExecContext:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
-_POW10_I = [10**k for k in range(9, -1, -1)]
-_POW10_F = [10.0**k for k in range(7, -1, -1)]
-
-
 def _parse_i32(digits: torch.Tensor) -> torch.Tensor:
-    """(n, 10) uint8 zero-padded decimal digits -> int32."""
-    d = digits.to(torch.int32) - 48
-    pows = torch.tensor(_POW10_I, dtype=torch.int32, device=digits.device)
-    return (d * pows).sum(dim=1, dtype=torch.int32)
+    """(n, 10) uint8 zero-padded decimal digits -> int32: the CUDA
+    ``parse_i32`` kernel on the card, its plain version on the CPU."""
+    from ..kernels.filter_project.ops import parse_i32
+    return parse_i32(digits)
 
 
 def _parse_f32(digits: torch.Tensor) -> torch.Tensor:
-    """(n, 8) uint8 fractional digits -> float32 in [0, 1).
-
-    Accumulates in f32 from the most significant digit, as the JAX
-    package's einsum does on its CPU backend, so both round alike."""
-    d = digits.to(torch.float32) - 48.0
-    acc = torch.zeros(d.shape[0], dtype=torch.float32, device=d.device)
-    for k, p in enumerate(_POW10_F):
-        acc = acc + d[:, k] * p
-    return acc * torch.tensor(1e-8, dtype=torch.float32, device=d.device)
+    """(n, 8) uint8 fractional digits -> float32 in [0, 1): the CUDA
+    ``parse_f32`` kernel on the card, its plain version on the CPU."""
+    from ..kernels.filter_project.ops import parse_f32
+    return parse_f32(digits)
 
 
 def _pred_mask(pred: E.Expr, names: Tuple[str, ...], nrows: int, cols):

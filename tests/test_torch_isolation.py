@@ -51,8 +51,18 @@ def test_port_source_names_neither_jax_nor_the_jax_package(path):
 
 
 def test_entry_points_default_to_cuda():
+    from repro_torch.carry import params_from_reference
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.decoder import init_cache
+    from repro_torch.relational import AsyncQueryService
+
+    cfg = get_config("granite-8b-smoke")
     if torch.cuda.is_available():
         assert Session().device.type == "cuda"
+        assert AsyncQueryService(Session()).session.device.type == "cuda"
+        cache = init_cache(cfg, 1, 8)
+        assert cache["scan"][0]["0"]["k"].device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match='device="cpu"'):
         build_tpcds_session(scale_rows=1_000)
@@ -60,6 +70,19 @@ def test_entry_points_default_to_cuda():
         Session.from_config(SessionConfig())
     with pytest.raises(RuntimeError, match='device="cpu"'):
         Session()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        AsyncQueryService(Session())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        params_from_reference({}, cfg)
+    # asked for, the CPU is used
+    assert AsyncQueryService(Session(device="cpu")).session.device.type \
+        == "cpu"
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    assert cache["scan"][0]["0"]["k"].device.type == "cpu"
 
 
 def test_cpu_is_used_when_asked():
