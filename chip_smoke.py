@@ -22,8 +22,11 @@ process per source, all at once) and drives both of the port's paths:
   CPU's;
 * attention (S1): holds ``decode_attention`` and ``flash_attention``
   against their plain versions over a sweep of masks, GQA groups, head
-  dims and dtypes, and times them at the serving path's shapes beside
-  the plain version and ``scaled_dot_product_attention``;
+  dims, dtypes, strided views and long caches, checks that a second
+  call equals the first and that decode of a batch equals each row
+  decoded alone (bitwise), and times them at the serving path's shapes
+  beside the plain version and ``scaled_dot_product_attention``, with
+  the profiler's device time of the one kernel each call launches;
 * serving (S2): serves granite-8b at full width through the prefix-cache
   MQO engine three times (no MQO, MQO cold, MQO warm), which must
   generate the same tokens and take the MQO decisions computed on the
@@ -348,25 +351,73 @@ def kernel_timings(device) -> dict:
     return out
 
 
-def profiled_ms(fn, marks, reps: int = 20):
-    """Device time per call of ``fn`` of the kernels whose names hold one
-    of ``marks``, from ``torch.profiler`` over ``reps`` calls after one
-    unprofiled call; None when the profiler saw none of them."""
+def device_kernels(fn, reps: int = 20, windows: int = 3) -> dict:
+    """Per device kernel name, (launches per call, device ms per call) of
+    ``fn``, from ``torch.profiler`` over ``windows`` windows of ``reps``
+    calls after one unprofiled call.  The profiler has dropped some of a
+    window's kernels now and then, so a kernel's launches per call are
+    the most any window saw, and its time per launch the mean over every
+    launch of it that the windows saw."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    seen = {}     # kernel name -> [most in a window, total us, launches]
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count:
+                rec = seen.setdefault(e.key, [0, 0.0, 0])
+                rec[0] = max(rec[0], e.count)
+                rec[1] += e.self_device_time_total
+                rec[2] += e.count
+    return {k: (most / reps, most / reps * us / n / 1e3)
+            for k, (most, us, n) in seen.items()}
+
+
+def marked(kernels: dict, marks) -> tuple:
+    """(device ms per call, launches per call) of the kernels of
+    :func:`device_kernels` whose names hold one of ``marks`` ("" matches
+    every kernel); (None, 0) when there are none."""
+    hits = [v for k, v in kernels.items() if any(m in k for m in marks)]
+    if not hits:
+        return None, 0
+    return sum(ms for _, ms in hits), sum(n for n, _ in hits)
+
+
+def profiled_ms(fn, marks, reps: int = 20):
+    """Device ms per call of ``fn``'s kernels whose names hold one of
+    ``marks``; None when the profiler saw none of them."""
+    return marked(device_kernels(fn, reps), marks)[0]
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times, the median replay's
+    CUDA-event time over ``calls``.  No host work runs between the
+    kernels, so this holds a kernel and a library call to the same
+    measure without the profiler."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and any(m in e.key for m in marks))
-    return us / reps / 1e3 if us else None
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps=reps)
+    del graph
+    return ms / calls
 
 
 def fmt_ms(ms) -> str:
@@ -992,10 +1043,14 @@ def _randn(shape, dtype, device, gen):
 
 def attention_sweep(device) -> dict:
     """Both attention kernels against their plain versions: causal /
-    window (and neither) x group 1, 2, 4 x D 32, 64, 128, 256 x f32 /
-    bf16, with live lengths of 1 and lengths and offsets that are no
-    multiple of a tile.  Returns the worst error and case count per
-    kernel; raises on an error above ATTN_ATOL."""
+    window (and neither) x group 1-5 (and 16 at D 256) x D 32, 64, 128,
+    256 x f32 / bf16, with live lengths of 1 and lengths and offsets that
+    are no multiple of a tile; the bf16 forward also on the strided
+    (B, T, H, D) views ``gqa_forward`` hands it; and at granite-8b's
+    heads, decode over an 8192-slot cache at 8192 and 1 live keys and the
+    forward at T = S = 1024 causal and at T = 64 < S = 1000 with a
+    window.  Returns the worst error and case count per kernel; raises
+    on an error above ATTN_ATOL."""
     import torch
 
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -1016,35 +1071,110 @@ def attention_sweep(device) -> dict:
         worst[name] = max(worst[name], err)
         cases[name] += 1
 
+    def decode_case(q, k, v, kv_len, dtype, what):
+        for window in (None, 48):
+            check("decode_attention",
+                  DK.decode_attention(q, k, v, kv_len, window=window),
+                  decode_ref(q, k, v, kv_len, window=window), dtype,
+                  f"{what} window={window}")
+
+    def flash_case(q, k, v, dtype, what, masks):
+        for causal, window in masks:
+            check("flash_attention",
+                  FK.flash_attention(q, k, v, causal=causal, window=window),
+                  mha_ref(q, k, v, causal=causal, window=window), dtype,
+                  f"{what} T={q.shape[2]} S={k.shape[2]} causal={causal} "
+                  f"window={window}")
+
+    every_mask = ((True, None), (True, 48), (False, None), (False, 48))
     for d in (32, 64, 128, 256):
-        for group in (1, 2, 4):
+        for group in (1, 2, 3, 4, 5) + ((16,) if d == 256 else ()):
             for dtype in (torch.float32, torch.bfloat16):
                 hkv, hq, s = 2, 2 * group, 300
-                q = _randn((3, hq, d), dtype, device, gen)
-                k = _randn((3, hkv, s, d), dtype, device, gen)
-                v = _randn((3, hkv, s, d), dtype, device, gen)
-                kv_len = torch.tensor([1, 137, s], dtype=torch.int32,
-                                      device=device)
-                for window in (None, 48):
-                    check("decode_attention",
-                          DK.decode_attention(q, k, v, kv_len,
-                                              window=window),
-                          decode_ref(q, k, v, kv_len, window=window), dtype,
-                          f"D={d} group={group} {dtype} window={window}")
+                what = f"D={d} group={group} {dtype}"
+                decode_case(_randn((3, hq, d), dtype, device, gen),
+                            _randn((3, hkv, s, d), dtype, device, gen),
+                            _randn((3, hkv, s, d), dtype, device, gen),
+                            torch.tensor([1, 137, s], dtype=torch.int32,
+                                         device=device), dtype, what)
                 for t, s2 in ((100, 160), (130, 130), (1, 70)):
-                    q2 = _randn((1, hq, t, d), dtype, device, gen)
-                    k2 = _randn((1, hkv, s2, d), dtype, device, gen)
-                    v2 = _randn((1, hkv, s2, d), dtype, device, gen)
-                    for causal, window in ((True, None), (True, 48),
-                                           (False, None), (False, 48)):
-                        check("flash_attention",
-                              FK.flash_attention(q2, k2, v2, causal=causal,
-                                                 window=window),
-                              mha_ref(q2, k2, v2, causal=causal,
-                                      window=window), dtype,
-                              f"D={d} group={group} {dtype} T={t} S={s2} "
-                              f"causal={causal} window={window}")
+                    flash_case(_randn((1, hq, t, d), dtype, device, gen),
+                               _randn((1, hkv, s2, d), dtype, device, gen),
+                               _randn((1, hkv, s2, d), dtype, device, gen),
+                               dtype, what, every_mask)
+        for group in (1, 4):
+            # (B, T, H, D) storage seen as (B, H, T, D), as gqa_forward
+            # hands the kernel its q, k, v
+            hkv, hq, t, s2 = 2, 2 * group, 100, 160
+            flash_case(*(_randn((2, n, h, d), torch.bfloat16, device, gen)
+                         .transpose(1, 2) for n, h in
+                         ((t, hq), (s2, hkv), (s2, hkv))),
+                       torch.bfloat16, f"D={d} group={group} strided",
+                       ((True, None), (True, 48)))
+    hq, hkv, d = 32, 8, 128
+    for dtype in (torch.float32, torch.bfloat16):
+        what = f"granite heads {dtype}"
+        decode_case(_randn((2, hq, d), dtype, device, gen),
+                    _randn((2, hkv, 8192, d), dtype, device, gen),
+                    _randn((2, hkv, 8192, d), dtype, device, gen),
+                    torch.tensor([8192, 1], dtype=torch.int32,
+                                 device=device), dtype, f"{what} S=8192")
+        for t, s2, masks in ((1024, 1024, ((True, None),)),
+                             (64, 1000, ((True, 200),))):
+            flash_case(_randn((1, hq, t, d), dtype, device, gen),
+                       _randn((1, hkv, s2, d), dtype, device, gen),
+                       _randn((1, hkv, s2, d), dtype, device, gen), dtype,
+                       what, masks)
     return dict(worst=worst, cases=cases)
+
+
+def attention_bitwise(device) -> list:
+    """Run-to-run and batch invariance of both kernels at granite-8b's
+    heads, in bf16: a second call equals the first bitwise, and decode
+    of a batch of 8 rows (live lengths 1 .. 1024 over a 1024-slot cache,
+    with and without a window) equals each row decoded alone.  Returns
+    what was checked; raises on any difference."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    bf16 = torch.bfloat16
+    hq, hkv, d = 32, 8, 128
+    done = []
+    q, k, v = (_randn((1, h, 256, d), bf16, device, gen)
+               for h in (hq, hkv, hkv))
+    if not torch.equal(FK.flash_attention(q, k, v),
+                       FK.flash_attention(q, k, v)):
+        raise AssertionError("flash_attention differs between two calls")
+    done.append("flash_attention: two calls equal")
+    lens = torch.tensor([1, 37, 128, 257, 300, 511, 777, 1024],
+                        dtype=torch.int32, device=device)
+    q = _randn((8, hq, d), bf16, device, gen)
+    k = _randn((8, hkv, 1024, d), bf16, device, gen)
+    v = _randn((8, hkv, 1024, d), bf16, device, gen)
+    for window in (None, 100):
+        full = DK.decode_attention(q, k, v, lens, window=window)
+        if not torch.equal(full, DK.decode_attention(q, k, v, lens,
+                                                     window=window)):
+            raise AssertionError(f"decode_attention differs between two "
+                                 f"calls (window={window})")
+        for i in range(8):
+            one = DK.decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      lens[i:i + 1], window=window)
+            if not torch.equal(one, full[i:i + 1]):
+                raise AssertionError(
+                    f"decode_attention of row {i} alone differs from the "
+                    f"batch of 8 (window={window})")
+    done.append("decode_attention: two calls equal, each of 8 rows alone "
+                "equals the batch (window None and 100)")
+    return done
+
+
+DECODE_MARK = "decode_attention_kernel"
+FLASH_MARK = "flash_fwd_wgmma_kernel"
 
 
 def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
@@ -1053,19 +1183,29 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
     device time of its kernels ``marks`` from the profiler), its plain
     version and one library call (CUDA events, and the device time of
     all its kernels) on the same inputs, with the bound of the
-    function's work."""
+    function's work.  Raises when the profiler sees no kernel ``marks``
+    or any device work of the wrapper beyond one such kernel a call."""
     import torch
 
     err = float((kern().float() - plain().float()).abs().max())
     torch.cuda.synchronize()
     if not err <= ATTN_ATOL["torch.bfloat16"]:
         raise AssertionError(f"kernel disagrees at {shape}: {err}")
+    kernels = device_kernels(kern)
+    device_ms, per_call = marked(kernels, marks)
+    _, every = marked(kernels, ("",))
+    if device_ms is None or per_call != 1 or every != 1:
+        raise AssertionError(
+            f"at {shape} the profiler saw {per_call} kernels {marks} and "
+            f"{every} device events per wrapper call, not one")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_OPS_PER_S * 1e3
-    return dict(ms=time_ms(kern), device_ms=profiled_ms(kern, marks),
-                plain_ms=time_ms(plain), library_ms=time_ms(lib),
+    return dict(ms=time_ms(kern), device_ms=device_ms,
+                graph_ms=graph_ms(kern), plain_ms=time_ms(plain),
+                library_ms=time_ms(lib),
                 # every device event of the library call ("" matches all)
                 library_device_ms=profiled_ms(lib, ("",)),
+                library_graph_ms=graph_ms(lib),
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 max_abs_err=err, shape=shape)
@@ -1074,10 +1214,11 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
 def attention_timings(device) -> dict:
     """Kernel, plain version and ``scaled_dot_product_attention`` at the
     serving path's shapes (granite-8b, bf16): decode over a 1024-slot
-    cache at 128 and 1024 live keys, forward over a 256-token prompt.
-    Bounds count live bytes only: q and out once, the live K/V rows
-    once; the forward's operations are QK^T and PV over the causal
-    pairs."""
+    cache at 128 and 1024 live keys (batch 1, as the engine decodes) and
+    at S2's 8 requests as one batch at 272 live keys, forward over a
+    256-token prompt.  Bounds count live bytes only: q and out once, the
+    live K/V rows once; the forward's operations are QK^T and PV over
+    the causal pairs."""
     import torch
     import torch.nn.functional as F
 
@@ -1090,22 +1231,23 @@ def attention_timings(device) -> dict:
     bf16 = torch.bfloat16
     hq, hkv, d = 32, 8, 128
     out = {}
-    q = _randn((1, hq, d), bf16, device, gen)
-    k = _randn((1, hkv, 1024, d), bf16, device, gen)
-    v = _randn((1, hkv, 1024, d), bf16, device, gen)
-    for live in (128, 1024):
-        kv_len = torch.tensor([live], dtype=torch.int32, device=device)
-        out[f"decode_attention/kv{live}"] = _timing(
-            lambda: DK.decode_attention(q, k, v, kv_len),
-            lambda: decode_ref(q, k, v, kv_len),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None], k[:, :, :live], v[:, :, :live],
-                enable_gqa=True),
-            2 * q.numel() * 2 + 2 * hkv * live * d * 2 + 4,
-            4 * hq * live * d,
-            f"q (1, {hq}, {d}), cache (1, {hkv}, 1024, {d}) bf16, "
-            f"kv_len {live}",
-            ("decode_split_kernel", "decode_combine_kernel"))
+    for b, lives in ((1, (128, 1024)), (8, (272,))):
+        q = _randn((b, hq, d), bf16, device, gen)
+        k = _randn((b, hkv, 1024, d), bf16, device, gen)
+        v = _randn((b, hkv, 1024, d), bf16, device, gen)
+        for live in lives:
+            kv_len = torch.full((b,), live, dtype=torch.int32, device=device)
+            key = f"decode_attention/kv{live}" + ("" if b == 1 else f"/b{b}")
+            out[key] = _timing(
+                lambda: DK.decode_attention(q, k, v, kv_len),
+                lambda: decode_ref(q, k, v, kv_len),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k[:, :, :live], v[:, :, :live],
+                    enable_gqa=True),
+                b * (2 * q[0].numel() * 2 + 2 * hkv * live * d * 2 + 4),
+                b * 4 * hq * live * d,
+                f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) bf16, "
+                f"kv_len {live}", (DECODE_MARK,))
     t = 256
     q = _randn((1, hq, t, d), bf16, device, gen)
     k = _randn((1, hkv, t, d), bf16, device, gen)
@@ -1118,7 +1260,7 @@ def attention_timings(device) -> dict:
         (2 * q.numel() + 2 * k.numel()) * 2,
         4 * hq * d * (t * (t + 1) // 2),
         f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal",
-        ("flash_fwd_kernel",))
+        (FLASH_MARK,))
     return out
 
 
@@ -1258,7 +1400,7 @@ def serving_path(device, smi: str) -> dict:
     n_prof = 16
     prof = device_time(lambda: _generate_scan(
         params, _clone_state(resident), first, 256, cfg, n_prof), device,
-        mark="decode_split_kernel")
+        mark=DECODE_MARK)
     if prof["busy"] is None:
         log("serving decode, profiled: device time not measured (the "
             "profiler saw no device activity)")
@@ -1271,7 +1413,7 @@ def serving_path(device, smi: str) -> dict:
             f"device busy {prof['busy'] / n_prof * 1e3:.2f} ms a step "
             f"(idle share {1 - prof['busy'] / prof['wall']:.3f}), "
             f"{prof['n_events'] / n_prof:.0f} device events a step; "
-            f"decode_split_kernel {at * 1e3:.3f} ms x{an} "
+            f"{DECODE_MARK} {at * 1e3:.3f} ms x{an} "
             f"({at / prof['busy']:.3f} of busy); top device events: "
             f"{top} [{smi}]")
 
@@ -1386,12 +1528,16 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
         f"{sweep['worst']['flash_attention']:.3g} (limits f32 "
         f"{ATTN_ATOL['torch.float32']}, bf16 "
         f"{ATTN_ATOL['torch.bfloat16']})")
+    for line in attention_bitwise(cuda):
+        log(f"bitwise: {line}")
     timings = attention_timings(cuda)
     for name, t in timings.items():
         log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms (profiler "
-            f"device time {fmt_ms(t['device_ms'])}), plain "
+            f"device time {fmt_ms(t['device_ms'])}, one device kernel a "
+            f"call; in a CUDA graph {t['graph_ms']:.4f} ms), plain "
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
-            f"(device time {fmt_ms(t['library_device_ms'])}), bound "
+            f"(device time {fmt_ms(t['library_device_ms'])}; in a CUDA "
+            f"graph {t['library_graph_ms']:.4f} ms), bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{smi}]")
     launches = serving_path(cuda, smi)["launches"] if serve else {}
     kernels = []
@@ -1409,11 +1555,14 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
-            library_device_ms=t["library_device_ms"], shape=t["shape"])
+            library_device_ms=t["library_device_ms"],
+            graph_ms=t["graph_ms"], library_graph_ms=t["library_graph_ms"],
+            shape=t["shape"])
         if name == "decode_attention":
-            entry["kv1024"] = {k: v for k, v in
-                               timings["decode_attention/kv1024"].items()
-                               if k != "shape"}
+            for sub in ("kv1024", "kv272/b8"):
+                entry[sub.replace("/", "_")] = {
+                    k: v for k, v in timings[f"decode_attention/{sub}"]
+                    .items() if k != "shape"}
         kernels.append(entry)
     return kernels
 

@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -72,3 +72,15 @@ def load(source: Path) -> ctypes.CDLL:
         if lib is None:
             lib = _LOADED[path] = ctypes.CDLL(str(path))
         return lib
+
+
+def launch_on(device, fn: Callable[..., int], args: Sequence) -> int:
+    """``fn(*args, stream)`` on the current stream of CUDA ``device``,
+    inside that device's context only when it is not the current one;
+    returns ``fn``'s error code."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

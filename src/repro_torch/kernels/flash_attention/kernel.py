@@ -2,9 +2,13 @@
 Hopper (CUDA C++, ``csrc/flash_attention.cu``).
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
-the plain torch version in ``ref.py`` only for CPU tensors.  Each
-launch adds one to :data:`LAUNCHES`.  Forward only: the recompute
-backward comes with the training path.
+the plain torch version in ``ref.py`` only for CPU tensors.  bf16
+inputs take the TMA + ``wgmma`` kernel, which reads strided q / k / v
+views through tensor maps (no copy where the strides are whole 16-byte
+units) and writes the output in q's layout; f32 inputs take the CUDA-core
+kernel on contiguous tensors.  Each launch adds one to
+:data:`LAUNCHES`.  Forward only: the recompute backward comes with the
+training path.
 """
 from __future__ import annotations
 
@@ -20,6 +24,10 @@ from .ref import mha_ref
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+# the library's own error codes, beside CUDA's
+_ERRORS = {9001: "cuTensorMapEncodeTiled could not be looked up",
+           9002: "cuTensorMapEncodeTiled refused a tensor map"}
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -38,7 +46,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [
-            p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p, p]
+            p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p, p]
         lib.flash_attention_launch.restype = i
         _LIB = lib
     return _LIB
@@ -66,6 +74,18 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one device")
 
 
+def _tma_ready(x: torch.Tensor) -> bool:
+    """Whether a tensor map can describe ``x`` as it is: unit last
+    stride, other strides and the address in whole 16-byte units."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in x.stride()[:-1]))
+
+
+def _strides(*xs) -> ctypes.Array:
+    vals = [st for x in xs for st in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -77,18 +97,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    dev = q.device
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v = (x if _tma_ready(x) else
+                   x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), b, hq, hkv, t, s, d,
-            _DTYPE_CODE[q.dtype], int(bool(causal)),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v, out),
+            b, hq, hkv, t, s, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
             -1 if window is None else int(window), float(scale),
-            out.data_ptr(), stream)
+            out.data_ptr())
+    rc = _build.launch_on(q.device, _lib().flash_attention_launch, args)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention launch failed: "
+                           f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     LAUNCHES["flash_attention"] += 1
     return out

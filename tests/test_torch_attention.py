@@ -124,10 +124,17 @@ def test_wrappers_count_no_launch_on_the_cpu():
 
 
 def test_decode_split_plan_covers_the_cache():
-    """Every key of the cache falls in exactly one split, whatever the
-    shape, and splits are whole tiles."""
+    """Every live key of the cache falls in exactly one CTA's share of
+    the cluster, whatever the shape and the live range, and the cluster
+    stays within the kernel's 16."""
     for b, hkv, s, d in ((1, 8, 1024, 128), (2, 2, 300, 32),
                          (1, 1, 64, 256), (4, 8, 17, 64)):
-        n_split, per = DK.split_plan(b, hkv, s, d, n_sms=132)
-        assert per % (4096 // d) == 0
-        assert (n_split - 1) * per < s <= n_split * per
+        n_split = DK.split_plan(hkv, s, d, n_sms=132)
+        assert 1 <= n_split <= 8
+        for lo, hi in ((0, s), (0, 1), (s // 3, s), (max(s - 48, 0), s),
+                       (0, 0)):
+            hits = [0] * s
+            for begin, end in DK.split_ranges(n_split, lo, hi):
+                for key in range(begin, end):
+                    hits[key] += 1
+            assert hits == [int(lo <= key < hi) for key in range(s)]
