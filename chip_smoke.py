@@ -8,18 +8,20 @@ Run from the repository root on a machine with one CUDA card:
 It builds the CUDA kernels from ``src/repro_torch`` with ``nvcc`` (one
 process per source, all at once) and drives both of the port's paths:
 
-* relational: holds the filter kernels bitwise against their plain torch
-  versions over a seeded opcode sweep, times both at the main path's
-  shapes, streams the 50 TPC-DS queries at SF1 scale through
-  ``QueryService`` windows on the card and on the CPU (results and MQO
-  decisions must agree), and runs the literal-program route;
-* CSV decode and the async front (A0, A): holds ``parse_i32`` /
-  ``parse_f32`` bitwise against their plain versions and times them at
+* relational: holds the filter kernel bitwise against its plain torch
+  versions over a seeded opcode sweep that runs every compiled variant,
+  times it at the main path's shapes, streams the 50 TPC-DS queries at
+  SF1 scale through ``QueryService`` windows on the card and on the CPU
+  (results and MQO decisions must agree), and runs the literal-program
+  route;
+* CSV decode and the async front (A0, A): holds the CSV decoder
+  (``parse_fields`` and its one-field forms ``parse_i32`` /
+  ``parse_f32``) bitwise against its plain versions and times it at
   SF1; A0 streams the 50 queries through ``AsyncQueryService`` on the
   SF1 CSV tables (tables and MQO decisions must equal the CPU sync
-  front's); A serves 32 open-loop clients (two tenants, three template
-  families) in fixed and adaptive windows, every table equal to the
-  CPU's;
+  front's, and each CSV scan must launch the decoder once); A serves
+  32 open-loop clients (two tenants, three template families) in fixed
+  and adaptive windows, every table equal to the CPU's;
 * attention (S1): holds ``decode_attention`` and ``flash_attention``
   against their plain versions over a sweep of masks, GQA groups, head
   dims, dtypes, strided views and long caches, checks that a second
@@ -33,9 +35,13 @@ process per source, all at once) and drives both of the port's paths:
   CPU, and checks ``Model.forward`` with the flash kernel against the
   plain attention on the card.
 
-``--only relational|async|attention|serving`` runs one group (for
-bring-up: ``relational`` leaves out A0 and A, ``async`` runs the CSV
-decoders, A0 and A); with no argument every phase runs.  It prints one
+``--only relational|async|attention|serving|timings`` runs one group
+(for bring-up: ``relational`` leaves out A0 and A, ``async`` runs the
+CSV decoder, A0 and A, ``timings`` only times the filter kernel and the
+decoder); with no argument every phase runs.  ``--only timings --tree
+DIR`` times the kernels of another checkout through its own wrappers,
+so that an earlier commit's kernels (``git archive`` into DIR) and this
+one's can be timed in turns on one card.  It prints one
 line per phase.  The line before the last is the kernels' JSON; the
 last line is the device JSON.  Any failure exits non-zero; without CUDA it exits non-zero before
 any result.  The script imports nothing of the JAX package.
@@ -86,16 +92,16 @@ def device_line() -> str:
     return out[0]
 
 
-def build_kernels(sources=SOURCES) -> tuple:
-    """Build the port's kernel sources with nvcc, one process per source
-    started together; returns the wall seconds and, per source, a
-    summary of ptxas's per-kernel resource report (registers, stack
-    frame, spills)."""
+def build_kernels(sources=SOURCES, root: Path = ROOT) -> tuple:
+    """Build the port's kernel sources (paths under the checkout
+    ``root``) with nvcc, one process per source started together;
+    returns the wall seconds and, per source, a summary of ptxas's
+    per-kernel resource report (registers, stack frame, spills)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(lambda src: _build.compile_source(ROOT / src),
+        libs = list(pool.map(lambda src: _build.compile_source(root / src),
                              sources))
     seconds = time.perf_counter() - t0
     usage = {}
@@ -111,7 +117,37 @@ def build_kernels(sources=SOURCES) -> tuple:
         usage[Path(src).stem] = (
             f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"stack frame up to {max(stack)} bytes, {spills} with spills")
+        if src in (FILTER_SCAN_CU, CSV_PARSE_CU):
+            for kernel, figures in ptxas_kernels(lines).items():
+                usage[kernel] = figures
     return seconds, usage
+
+
+def ptxas_kernels(lines) -> dict:
+    """Per kernel of a ptxas ``-v`` report, "R registers, S bytes stack
+    frame, X bytes spill stores, Y bytes spill loads"; a template's
+    integer arguments are written out (``filter_scan_kernel<8, 2>``)."""
+    import re
+
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([A-Za-z_]+_kernel)(I(?:Li\d+E)+E)?",
+                             mangled)
+            name = base.group(1) if base else mangled
+            if base and base.group(2):
+                args = re.findall(r"Li(\d+)E", base.group(2))
+                name += f"<{', '.join(args)}>"
+            out[name] = ""
+        elif name and "stack frame" in line:
+            out[name] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out[name] = f"{regs} registers, {out[name]}"
+            name = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -200,9 +236,37 @@ def random_program(rng, dtypes, slotted: bool, kinds: set):
     return tuple(prog), len(ivals), len(fvals)
 
 
+def deep_program(rng, dtypes, slotted: bool, kinds: set, depth: int):
+    """A program whose stack reaches ``depth``: ``depth`` leaves pushed
+    first, then folded by and/or (with nots) from the top, so it needs
+    the kernel's wider stack variants."""
+    ivals, fvals = [], []
+    prog = [random_leaf(rng, dtypes, slotted, ivals, fvals, kinds)
+            for _ in range(depth)]
+    for _ in range(depth - 1):
+        if rng.random() < 0.2:
+            prog.append(("not",))
+        prog.append(("and",) if rng.random() < 0.5 else ("or",))
+    return tuple(prog), len(ivals), len(fvals)
+
+
+# (N, nrows, block) of the filter sweep: N a block multiple and not (the
+# columns are padded), N not a multiple of the 2048- or 4096-row tile,
+# nrows inside a tile, blocks down to the 1-4 rows the engine uses for
+# tiny tables
+FILTER_SWEEP = ((5000, 4321, 1024), (300, 300, 128), (4096, 1000, 2048),
+                (5000, 4999, 512), (6144, 5000, 2048), (100, 37, 4),
+                (9, 5, 1))
+SWEEP_NQ = (1, 3, 8, 64)
+SWEEP_DEPTHS = (5, 9, 17, 33, 64)  # each needs a wider stack variant
+
+
 def kernel_sweep(device) -> dict:
-    """Seeded opcode sweep: both kernels must be bitwise equal to their
-    plain versions.  Returns the max |mask difference| per kernel."""
+    """Seeded opcode sweep: the filter kernel must be bitwise equal to
+    its plain versions, over every opcode, n_q in SWEEP_NQ, programs deep enough for every stack
+    variant (every compiled variant must run), 16 columns (a narrower
+    tile), a column not 16-byte aligned, and the shapes of FILTER_SWEEP.
+    Returns the programs checked per entry point and the variants run."""
     import numpy as np
     import torch
 
@@ -213,43 +277,82 @@ def kernel_sweep(device) -> dict:
     rng = np.random.default_rng(0)
     kinds: set = set()
     checked = {"filter_scan": 0, "filter_scan_batch": 0}
-    for n, nrows, block in ((5000, 4321, 1024), (300, 300, 128),
-                            (4096, 1000, 2048)):
+    variants = set()
+
+    def check(name, got, want, prog, what):
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name} disagrees with its plain version on program "
+                    f"{prog} ({what})")
+
+    def run(cols, prog, ki, kf, slotted, nrows, block, n_q, what):
+        if not slotted:
+            want = R.filter_scan_ref(cols, prog, nrows, block)
+            check("filter_scan", K.filter_scan(cols, prog, nrows,
+                                               block=block), want, prog,
+                  what)
+            name, queries = "filter_scan", 1
+        else:
+            ic = torch.from_numpy(rng.integers(
+                -40, 40, (n_q, max(ki, 1))).astype(np.int32)).to(device)
+            fc = torch.from_numpy((rng.integers(
+                -40, 40, (n_q, max(kf, 1))) * 0.5).astype(
+                    np.float32)).to(device)
+            check("filter_scan_batch", K.filter_scan_batch(
+                cols, prog, nrows, ic, fc, block=block),
+                R.filter_scan_batch_ref(cols, prog, nrows, ic, fc, block),
+                prog, what)
+            name, queries = "filter_scan_batch", n_q
+        enc = K.encode_program(prog, [c.dtype for c in cols], device)
+        variants.add(K.kernel_variant(enc.max_depth, queries))
+        checked[name] += 1
+
+    for n, nrows, block in FILTER_SWEEP:
         cols = sweep_columns(rng, n, device)
         dtypes = [c.dtype for c in cols]
         padded, _ = _pad_rows(cols, block)
         for trial in range(120):
             slotted = trial % 2 == 1
-            prog, ki, kf = random_program(rng, dtypes, slotted, kinds)
-            if not slotted:
-                got = K.filter_scan(padded, prog, nrows, block=block)
-                want = R.filter_scan_ref(padded, prog, nrows, block)
-                name = "filter_scan"
+            n_q = SWEEP_NQ[trial // 2 % len(SWEEP_NQ)]
+            if trial % 10 in (8, 9):    # every depth, with 1 and 8 queries
+                deep = trial // 10
+                prog, ki, kf = deep_program(
+                    rng, dtypes, slotted, kinds,
+                    SWEEP_DEPTHS[deep % len(SWEEP_DEPTHS)])
+                n_q = 8 if deep % 2 else 1
             else:
-                n_q = (1, 3, 8)[trial % 3]
-                ic = torch.from_numpy(rng.integers(
-                    -40, 40, (n_q, max(ki, 1))).astype(np.int32)).to(device)
-                fc = torch.from_numpy((rng.integers(
-                    -40, 40, (n_q, max(kf, 1))) * 0.5).astype(
-                        np.float32)).to(device)
-                got = K.filter_scan_batch(padded, prog, nrows, ic, fc,
-                                          block=block)
-                want = R.filter_scan_batch_ref(padded, prog, nrows, ic, fc,
-                                               block)
-                name = "filter_scan_batch"
-            for g, w in zip(got, want):
-                if g.shape != w.shape or not torch.equal(g, w):
-                    raise AssertionError(
-                        f"{name} disagrees with its plain version on "
-                        f"program {prog} (n={n}, nrows={nrows}, "
-                        f"block={block})")
-            checked[name] += 1
+                prog, ki, kf = random_program(rng, dtypes, slotted, kinds)
+            run(padded, prog, ki, kf, slotted, nrows, block, n_q,
+                f"n={n}, nrows={nrows}, block={block}, n_q={n_q}")
+    # 16 columns, 4 of them int64: the block's tile narrows to fit
+    wide = sweep_columns(rng, 3072, device) * 4
+    for trial in range(24):
+        slotted = trial % 2 == 1
+        prog, ki, kf = random_program(rng, [c.dtype for c in wide], slotted,
+                                      kinds)
+        run(wide, prog, ki, kf, slotted, 3000, 1024, 8, "16 columns")
+    # columns that start 4 bytes past an aligned address: staged without
+    # vector loads
+    base = sweep_columns(rng, 4097, device)
+    shifted = [c[1:] for c in base]
+    for trial in range(24):
+        slotted = trial % 2 == 1
+        prog, ki, kf = random_program(rng, [c.dtype for c in shifted],
+                                      slotted, kinds)
+        run(shifted, prog, ki, kf, slotted, 4000, 4096, 8, "unaligned")
     want_kinds = ({c for c in CMPS} | {c + "c" for c in CMPS}
                   | {c + "$" for c in CMPS}
                   | {"in", "const", "and", "or", "not"})
     missing = want_kinds - kinds
     if missing:
         raise AssertionError(f"sweep missed opcodes {sorted(missing)}")
+    want_variants = {(w, 1) for w in (1, 2, 4, 8, 16)} | {
+        (w, K.QUERIES_PER_PASS) for w in (1, 2)}
+    if variants != want_variants:
+        raise AssertionError(f"sweep ran stack variants {sorted(variants)}, "
+                             f"not {sorted(want_variants)}")
+    checked["variants"] = len(variants)
     return checked
 
 
@@ -274,7 +377,8 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def kernel_timings(device) -> dict:
     """Kernel vs plain version at the main path's shapes: SF1
-    store_sales (capacity 2^22), the F2 predicate, 8 queries."""
+    store_sales (capacity 2^22), the F2 predicate, 8 queries (and 64,
+    the adaptive windows' cap), the literal program."""
     import numpy as np
     import torch
 
@@ -301,15 +405,16 @@ def kernel_timings(device) -> dict:
     kinds = {"ss_quantity": "i32", "ss_sales_price": "f32"}
     rows_i, rows_f = [], []
     program = None
-    for thr in (50, 60, 70, 80, 90, 55, 65, 75):
+    for k in range(64):
+        thr = (50, 60, 70, 80, 90, 55, 65, 75)[k % 8] + k // 8
         pred = E.and_(E.cmp("ss_sales_price", ">", float(thr)),
                       E.cmp("ss_quantity", ">=", 10))
         program, iv, fv = compile_predicate_slots(pred, names, kinds)
         rows_i.append(iv)
         rows_f.append(fv)
-    ic, fc = (torch.from_numpy(a).to(device)
-              for a in pack_consts(rows_i, rows_f))
-    n_q = ic.shape[0]
+    consts = {n_q: tuple(torch.from_numpy(a).to(device) for a in
+                         pack_consts(rows_i[:n_q], rows_f[:n_q]))
+              for n_q in (8, 64)}
     enc = K.encode_program(program, [c.dtype for c in dev_cols], device)
     lit = compile_predicate(E.and_(E.cmp("ss_sales_price", ">", 50.0),
                                    E.cmp("ss_quantity", ">=", 10)), names)
@@ -319,31 +424,34 @@ def kernel_timings(device) -> dict:
     # byte and count
     row_bytes = sum(c.element_size() for c in dev_cols)
     n_blocks = cap // block
+    # (name, n_q, kernel call, plain version)
+    cases = []
+    for n_q in (8, 64):
+        ic, fc = consts[n_q]
+        key = "filter_scan_batch" + ("" if n_q == 8 else f"/nq{n_q}")
+        cases.append((key, n_q, lambda ic=ic, fc=fc: K.filter_scan_batch(
+            dev_cols, program, nrows, ic, fc, block=block, encoded=enc),
+            lambda ic=ic, fc=fc: R.filter_scan_batch_ref(
+                dev_cols, program, nrows, ic, fc, block)))
+    cases.append(("filter_scan", 1,
+                  lambda: K.filter_scan(dev_cols, lit, nrows, block=block,
+                                        encoded=enc_lit),
+                  lambda: R.filter_scan_ref(dev_cols, lit, nrows, block)))
     out = {}
-    for name, n, kern, plain in (
-            ("filter_scan_batch", n_q,
-             lambda: K.filter_scan_batch(dev_cols, program, nrows, ic, fc,
-                                         block=block, encoded=enc),
-             lambda: R.filter_scan_batch_ref(dev_cols, program, nrows, ic,
-                                             fc, block)),
-            ("filter_scan", 1,
-             lambda: K.filter_scan(dev_cols, lit, nrows, block=block,
-                                   encoded=enc_lit),
-             lambda: R.filter_scan_ref(dev_cols, lit, nrows, block))):
+    for name, n, kern, plain in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = max(float((g.to(torch.int64) - w.to(torch.int64))
                         .abs().max()) for g, w in zip(got, want))
         if err != 0:
             raise AssertionError(f"{name} disagrees at the main shapes")
-        ms = time_ms(kern)
-        device_ms = profiled_ms(kern, ("filter_scan_kernel",))
-        plain_ms = time_ms(plain)
         nbytes = nrows * row_bytes + n * cap + n * n_blocks * 4
         ops = 3 * nrows * n      # two compares and one and per live row
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
-        out[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        out[name] = dict(ms=time_ms(kern),
+                         device_ms=profiled_ms(kern, ("filter_scan_kernel",)),
+                         plain_ms=time_ms(plain),
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations", max_abs_err=err,
@@ -424,7 +532,14 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-# the CSV decoders: name, wrapper, plain version, field width
+# the CSV decoder's one-field forms: name, wrapper, plain version,
+# field width
+# the decoder's device kernel, and the one-field kernels that a
+# checkout given by --tree may launch instead
+DECODER_MARKS = ("parse_fields_kernel", "parse_i32_kernel",
+                 "parse_f32_kernel")
+
+
 def parse_kernels():
     from repro_torch.kernels.filter_project import kernel as K
     from repro_torch.kernels.filter_project import ref as R
@@ -451,14 +566,30 @@ def ascii_digits(values, width: int):
     return out
 
 
+def _equal_fields(got, want, want_cpu) -> bool:
+    import torch
+
+    return len(got) == len(want) == len(want_cpu) and all(
+        g.shape == w.shape and torch.equal(_bits(g), _bits(w))
+        and torch.equal(_bits(g).cpu(), _bits(c))
+        for g, w, c in zip(got, want, want_cpu))
+
+
 def parse_sweep(device) -> int:
-    """Both CSV decoders bitwise against their plain versions, on the
-    card and on the CPU: fields of a raw (n, 90) row matrix at odd
-    offsets (strided views) and one contiguous field, values up to
-    9,999,999,999, rows of ASCII zeros and rows of zero bytes, n a
-    multiple of the 256-row block and not.  Returns the cases checked."""
+    """The CSV decoder bitwise against its plain versions, on the card
+    and on the CPU.  One-field calls: fields of a raw (n, 90) row matrix
+    at odd offsets (strided views) and one contiguous field, values up
+    to 9,999,999,999, rows of ASCII zeros and rows of zero bytes.
+    Multi-field calls: random field sets (1-12 fields of 10 or 8 bytes,
+    overlapping or not) of row matrices 90 and 61 bytes wide, whole, cut
+    to start 3 bytes in (not 16-byte aligned) and cut short (rows wider
+    than the view).  n a multiple of the 256-row block and not.
+    Returns the cases checked."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels.filter_project import kernel as K
+    from repro_torch.kernels.filter_project import ref as R
 
     rng = np.random.default_rng(1)
     checked = 0
@@ -485,28 +616,86 @@ def parse_sweep(device) -> int:
                           .contiguous(),
                           host[:, fields[name][0]:fields[name][0] + width]))
             for dev_view, host_view in views:
-                got = kern(dev_view)
-                want = plain(dev_view)
-                want_cpu = plain(host_view)
-                torch.cuda.synchronize()
-                if not (torch.equal(_bits(got), _bits(want)) and
-                        torch.equal(_bits(got).cpu(), _bits(want_cpu))):
+                if not _equal_fields([kern(dev_view)], [plain(dev_view)],
+                                     [plain(host_view)]):
                     raise AssertionError(
                         f"{name} disagrees with its plain version (n={n}, "
                         f"stride {tuple(dev_view.stride())})")
                 checked += 1
+        for stride in (90, 61):
+            wide = rng.integers(0, 256, (n, stride)).astype(np.uint8)
+            wide[:, :60] = ascii_digits(rng.integers(0, 10**18, n), 60)
+            if n // 5:
+                wide[n - n // 5:] = 0
+            whole = torch.from_numpy(wide)
+            for dev_rows, host_rows in (
+                    (whole.to(device), whole),
+                    (whole.to(device)[:, 3:], whole[:, 3:]),
+                    (whole.to(device)[:, :stride - 7],
+                     whole[:, :stride - 7])):
+                width = host_rows.shape[1]
+                for _ in range(4):
+                    fields_ = [(int(rng.integers(0, width - w + 1)), w)
+                               for w in rng.choice(
+                                   (10, 8), int(rng.integers(1, 13)))]
+                    if not _equal_fields(
+                            K.parse_fields(dev_rows, fields_),
+                            R.parse_fields_ref(dev_rows, fields_),
+                            R.parse_fields_ref(host_rows, fields_)):
+                        raise AssertionError(
+                            f"parse_fields disagrees with its plain version "
+                            f"(n={n}, rows of {width} bytes at stride "
+                            f"{stride}, fields {fields_})")
+                    checked += 1
     return checked
 
 
+# the ten numeric fields of store_sales, and the F1 scan's (the category
+# report reads the item, date and sales price fields)
+STORE_SALES_NUMERIC = ("ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                       "ss_store_sk", "ss_quantity", "ss_wholesale_cost",
+                       "ss_list_price", "ss_sales_price",
+                       "ss_ext_sales_price", "ss_net_profit")
+F1_SCAN_FIELDS = ("ss_sold_date_sk", "ss_item_sk", "ss_ext_sales_price")
+
+
+def sector_bytes(stride: int, fields, rows: int, granule: int = 32) -> int:
+    """Bytes of the ``granule``-byte blocks (32: the card's sectors) of
+    ``rows`` rows ``stride`` bytes apart (from an aligned base) that hold
+    a byte of ``fields`` (``(offset, width)``): the least DRAM traffic a
+    decoder of those fields can have when the card fetches blocks of
+    that size.  The pattern repeats every ``granule / gcd(stride,
+    granule)`` rows, whose blocks no neighbouring period shares."""
+    import math
+
+    period = granule // math.gcd(stride, granule)
+
+    def count(n):
+        return len({(r * stride + off + k) // granule for r in range(n)
+                    for off, w in fields for k in range(w)})
+
+    whole, rest = divmod(rows, period)
+    return granule * (whole * count(period) + count(rest))
+
+
 def parse_timings(device) -> dict:
-    """Both CSV decoders at SF1 capacity: the ss_quantity (i32) and
-    ss_sales_price (f32) fields of store_sales' raw rows (2^22 x 90
-    bytes on the card, zero bytes past the live rows), as the CSV scan
-    hands them over.  The bound counts each live row's field once and
-    its 4-byte output once."""
+    """The CSV decoder at SF1 capacity over store_sales' raw rows (2^22 x
+    90 bytes on the card, zero bytes past the live rows), as the CSV
+    scan hands them over: one-field calls on ss_quantity (i32) and
+    ss_sales_price (f32); one multi-field launch over all ten numeric
+    fields and over the F1 scan's three, each beside the one-field
+    launches it replaces.  The bound counts each live row's field bytes
+    once and its 4-byte outputs once; ``sector_floor_ms`` counts the
+    32-byte sectors that hold field bytes over every row decoded, and
+    every output, ``floor64_ms`` the same with 64-byte blocks (both
+    computed, not measured: they go to the log, not the kernels line).
+    In a checkout without ``parse_fields`` (``--tree``) a scan's fields
+    are decoded one launch a field, as its scans decode them."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels.filter_project import kernel as K
+    from repro_torch.kernels.filter_project import ref as R
     from repro_torch.relational.datagen import to_csv_bytes
     from repro_torch.relational.schema import next_pow2
     from repro_torch.relational.tpcds import generate_tpcds_catalog
@@ -516,28 +705,75 @@ def parse_timings(device) -> dict:
     host = np.zeros((next_pow2(nrows), schema.row_csv_bytes), np.uint8)
     host[:nrows] = to_csv_bytes(schema, cols, nrows)
     raw = torch.from_numpy(host).to(device)
+    cap, stride = raw.shape
     offsets = schema.csv_offsets()
+
+    def one_field(width, view):
+        return (K.parse_i32 if width == 10 else K.parse_f32)(view)
+
+    def per_field(fields):
+        return [one_field(w, raw[:, o:o + w]) for o, w in fields]
+
+    def plain(fields):
+        return [(R.parse_i32_ref if w == 10 else R.parse_f32_ref)(
+            raw[:, o:o + w]) for o, w in fields]
+
+    multi = getattr(K, "parse_fields", None)
+
+    def entry(kern, plain, fields, shape):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not _equal_fields(got, want, [w.cpu() for w in want]):
+            raise AssertionError(f"the CSV decoder disagrees at SF1 ({shape})")
+        width = sum(w for _, w in fields)
+        bytes_ms = nrows * (width + 4 * len(fields)) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * width * nrows / F32_OPS_PER_S * 1e3
+        out_bytes = 4 * len(fields) * cap
+        floor = sector_bytes(stride, fields, cap) + out_bytes
+        floor64 = sector_bytes(stride, fields, cap, 64) + out_bytes
+        device_ms, launches = marked(device_kernels(kern), DECODER_MARKS)
+        return dict(
+            ms=time_ms(kern), device_ms=device_ms,
+            launches_per_call=launches, plain_ms=time_ms(plain),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            sector_floor_ms=floor / HBM_BYTES_PER_S * 1e3,
+            floor64_ms=floor64 / HBM_BYTES_PER_S * 1e3,
+            max_abs_err=0.0, shape=shape)
+
     out = {}
-    for (name, kern, plain, width), field in zip(
+    for (name, _, _, width), field in zip(
             parse_kernels(), ("ss_quantity", "ss_sales_price")):
         off, w = offsets[field]
         view = raw[:, off:off + w]
-        got, want = kern(view), plain(view)
-        torch.cuda.synchronize()
-        if not torch.equal(_bits(got), _bits(want)):
-            raise AssertionError(f"{name} disagrees at SF1")
-        bytes_ms = nrows * (width + 4) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * width * nrows / F32_OPS_PER_S * 1e3
-        out[name] = dict(
-            ms=time_ms(lambda: kern(view)),
-            device_ms=profiled_ms(lambda: kern(view), (f"{name}_kernel",)),
-            plain_ms=time_ms(lambda: plain(view)),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            max_abs_err=0.0,
-            shape=f"{field}: ({raw.shape[0]}, {w}) view at offset {off} "
-                  f"of ({raw.shape[0]}, {raw.shape[1]}) raw rows, "
-                  f"{nrows} live")
+        what = (f"{field}: ({cap}, {w}) view at offset {off} of ({cap}, "
+                f"{stride}) raw rows, {nrows} live")
+        out[name] = entry(
+            lambda view=view, w=w: [one_field(w, view)],
+            lambda off=off, w=w: plain([(off, w)]),
+            [(off, w)], what + (", direct mode" if multi else ""))
+        if multi is None:
+            continue
+        # the staged mode, which a one-field call does not take
+        out[f"{name}/staged"] = entry(
+            lambda view=view, w=w, name=name: K._decode(
+                view, [(0, w)], name, direct=False),
+            lambda off=off, w=w: plain([(off, w)]),
+            [(off, w)], f"{what}, staged mode")
+    for key, names in (("all10", STORE_SALES_NUMERIC),
+                       ("f1", F1_SCAN_FIELDS)):
+        fields = [offsets[f] for f in names]
+        what = (f"{len(fields)} fields ({', '.join(names)}) of ({cap}, "
+                f"{stride}) raw rows, {nrows} live")
+        if multi is not None:
+            out[f"parse_fields/{key}"] = entry(
+                lambda fields=fields: multi(raw, fields),
+                lambda fields=fields: plain(fields),
+                fields, f"one launch: {what}")
+        out[f"parse_fields/{key}/per-field"] = entry(
+            lambda fields=fields: per_field(fields),
+            lambda fields=fields: plain(fields),
+            fields, f"one launch a field: {what}")
     return out
 
 
@@ -794,11 +1030,14 @@ def async_fixed_windows(K, device, want_passes,
     ``AsyncQueryService`` on the SF1 CSV session, cold then warm, in
     windows that only the count (8) or ``flush()`` closes.  Each table
     and each query's and window's MQO decisions must equal the CPU sync
-    front's (``want_passes``).  Returns per pass the launches and the
+    front's (``want_passes``), and each CSV scan must launch the decoder
+    once, however many numeric fields it reads.  Returns per pass the
+    launches, the CSV scans and their numeric fields, and the
     throughput."""
     import asyncio
 
     from repro_torch.relational import AsyncConfig, AsyncQueryService
+    from repro_torch.relational import physical
     from repro_torch.relational.observe import mqo_decision, mqo_trace
     from repro_torch.relational.tpcds import (build_tpcds_session,
                                               tpcds_queries)
@@ -817,11 +1056,52 @@ def async_fixed_windows(K, device, want_passes,
                                             ASYNC_TIMEOUT_S)
             return handles, tables, time.perf_counter() - t0
 
+    # Each CSV scan (a call of physical._csv_columns) must decode all of
+    # its numeric fields in one call of physical._parse_fields, which
+    # launches the decoder once: the scans and the decode calls are
+    # counted by separate spies and checked against each other and
+    # against the launch counter.
+    scans, decodes, bad = [], [], []
+    decode, columns = physical._parse_fields, physical._csv_columns
+
+    def decode_spy(raw, fields):
+        decodes.append(sorted(fields))
+        return decode(raw, fields)
+
+    def scan_spy(raw, schema, needed, nrows, ctx):
+        offsets = schema.csv_offsets()
+        numeric = sorted(offsets[n] for n in needed
+                         if schema.coltype(n).kind in ("i32", "f32"))
+        first = len(decodes)
+        cols = columns(raw, schema, needed, nrows, ctx)
+        if decodes[first:] != ([numeric] if numeric else []):
+            bad.append((numeric, decodes[first:]))
+        scans.append(len(numeric))
+        return cols
+
     out = []
     for phase, want in zip(("cold", "warm"), want_passes):
         K.reset_launches()
-        handles, tables, seconds = asyncio.run(serve(tpcds_queries(sess)))
+        scans.clear()
+        decodes.clear()
+        physical._parse_fields = decode_spy
+        physical._csv_columns = scan_spy
+        try:
+            handles, tables, seconds = asyncio.run(
+                serve(tpcds_queries(sess)))
+        finally:
+            physical._parse_fields = decode
+            physical._csv_columns = columns
         launched = dict(K.LAUNCHES)
+        decoding = sum(n > 0 for n in scans)
+        if bad or not decoding or len(decodes) != decoding \
+                or launched["parse_fields"] != decoding:
+            raise AssertionError(
+                f"async/{phase}: {len(scans)} CSV scans, {decoding} with "
+                f"numeric fields, made {len(decodes)} decode calls and "
+                f"{launched['parse_fields']} decoder launches; scans not "
+                f"decoded in one call of all their numeric fields: "
+                f"{bad[:3]}")
         for i, (a, b) in enumerate(zip(tables, want["tables"])):
             compare_tables(a, b, f"async/{phase}/q{i}")
         decisions = [mqo_decision(h._inner) for h in handles]
@@ -833,7 +1113,8 @@ def async_fixed_windows(K, device, want_passes,
             raise AssertionError(f"async/{phase}: MQO decisions differ from "
                                  f"the CPU sync front's at {bad}")
         out.append(dict(phase=phase, qps=len(tables) / seconds,
-                        launches=launched))
+                        launches=launched, scans=decoding,
+                        fields=sum(scans)))
     events = sess.telemetry().registry.value("events.total")
     if events:
         raise AssertionError(f"phase A0 logged {events} DegradationEvents")
@@ -993,14 +1274,18 @@ def async_phases(cuda, smi: str, want_passes) -> dict:
     for p in async_fixed_windows(K, cuda, want_passes):
         add(p["launches"])
         log(f"async A0 csv/{p['phase']}: {p['qps']:.2f} queries/s on the "
-            f"card, launches {p['launches']}; tables and MQO decisions "
-            f"(per query and per window) equal the CPU sync front's [{smi}]")
+            f"card, launches {p['launches']}: {p['scans']} CSV scans "
+            f"decoded {p['fields']} numeric fields in "
+            f"{p['launches']['parse_fields']} decoder launches, each scan "
+            f"all of its numeric fields in one call; tables and "
+            f"MQO decisions (per query and per window) equal the CPU sync "
+            f"front's [{smi}]")
     arrivals = async_arrivals()
     want = async_reference(arrivals)
     for mode, cfg_kw in ASYNC_MODES:
         r = async_open_loop(K, cuda, mode, cfg_kw, arrivals, want)
         add(r["launches"])
-        missing = [k for k in ("parse_i32", "parse_f32", "filter_scan_batch")
+        missing = [k for k in ("parse_fields", "filter_scan_batch")
                    if r["launches"].get(k, 0) <= 0]
         if missing:
             raise AssertionError(f"async/{mode} never launched {missing}")
@@ -1174,30 +1459,51 @@ def attention_bitwise(device) -> list:
 
 
 DECODE_MARK = "decode_attention_kernel"
+PROFILE_SESSIONS = 4                # S1's profiler sessions at most
+PROFILE_WINDOWS, PROFILE_REPS = 3, 20   # device_kernels' defaults
 FLASH_MARK = "flash_fwd_wgmma_kernel"
 
 
 def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
-            marks: tuple) -> dict:
+            marks: tuple, launched) -> dict:
     """Times of the kernel (CUDA events around the wrapper, and the
     device time of its kernels ``marks`` from the profiler), its plain
     version and one library call (CUDA events, and the device time of
     all its kernels) on the same inputs, with the bound of the
     function's work.  Raises when the profiler sees no kernel ``marks``
-    or any device work of the wrapper beyond one such kernel a call."""
+    or any device work of the wrapper beyond one such kernel a call.
+    ``launched()`` reads the wrapper's launch counter."""
     import torch
 
     err = float((kern().float() - plain().float()).abs().max())
     torch.cuda.synchronize()
     if not err <= ATTN_ATOL["torch.bfloat16"]:
         raise AssertionError(f"kernel disagrees at {shape}: {err}")
-    kernels = device_kernels(kern)
-    device_ms, per_call = marked(kernels, marks)
-    _, every = marked(kernels, ("",))
-    if device_ms is None or per_call != 1 or every != 1:
+    # The profiler has lost a launch in every window of a session now
+    # and then.  A session that saw fewer launches than calls and no
+    # other device work is profiled again (at most PROFILE_SESSIONS in
+    # all), but only while the wrapper's counter shows one launch a call
+    # in that session: each counted launch returned success and the
+    # session's synchronize raised nothing, so the kernel ran and the
+    # profiler lost its record.  Any other count fails at once.
+    calls = 1 + PROFILE_WINDOWS * PROFILE_REPS    # device_kernels' calls
+    for _ in range(PROFILE_SESSIONS):
+        before = launched()
+        kernels = device_kernels(kern, PROFILE_REPS, PROFILE_WINDOWS)
+        issued = (launched() - before) / calls
+        device_ms, per_call = marked(kernels, marks)
+        _, every = marked(kernels, ("",))
+        if not (device_ms is not None and per_call < 1 and every == per_call
+                and issued == 1):
+            break
+        log(f"S1 at {shape}: the profiler saw {per_call:.2f} kernels "
+            f"{marks} a call in its fullest window, the wrapper's counter "
+            f"{issued:.2f} launches a call; profiling again")
+    if device_ms is None or per_call != 1 or every != 1 or issued != 1:
         raise AssertionError(
             f"at {shape} the profiler saw {per_call} kernels {marks} and "
-            f"{every} device events per wrapper call, not one")
+            f"{every} device events per wrapper call, the wrapper's "
+            f"counter {issued} launches a call, not one")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     return dict(ms=time_ms(kern), device_ms=device_ms,
@@ -1247,7 +1553,8 @@ def attention_timings(device) -> dict:
                 b * (2 * q[0].numel() * 2 + 2 * hkv * live * d * 2 + 4),
                 b * 4 * hq * live * d,
                 f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) bf16, "
-                f"kv_len {live}", (DECODE_MARK,))
+                f"kv_len {live}", (DECODE_MARK,),
+                lambda: DK.LAUNCHES["decode_attention"])
     t = 256
     q = _randn((1, hq, t, d), bf16, device, gen)
     k = _randn((1, hkv, t, d), bf16, device, gen)
@@ -1260,7 +1567,7 @@ def attention_timings(device) -> dict:
         (2 * q.numel() + 2 * k.numel()) * 2,
         4 * hq * d * (t * (t + 1) // 2),
         f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal",
-        (FLASH_MARK,))
+        (FLASH_MARK,), lambda: FK.LAUNCHES["flash_attention"])
     return out
 
 
@@ -1453,32 +1760,42 @@ def serving_path(device, smi: str) -> dict:
 
 
 def relational_phases(cuda, smi: str, main_path_too: bool = True,
-                      async_too: bool = True) -> list:
+                      async_too: bool = True, checks: bool = True) -> list:
     """Phases 3-5 (``main_path_too``: the filter kernels, the TPC-DS
     stream and the literal route), the CSV decoders against their plain
     versions and their times, and phases A0 and A (``async_too``);
-    returns the kernels' JSON entries."""
+    returns the kernels' JSON entries.  Without ``checks`` only the
+    kernels' timings run (``--only timings``)."""
     from repro_torch.kernels.filter_project import kernel as K
 
     timings = {}
     if main_path_too:
-        checked = kernel_sweep(cuda)
-        log(f"kernels vs plain versions: bitwise equal over "
-            f"{checked['filter_scan']} literal and "
-            f"{checked['filter_scan_batch']} slotted programs")
+        if checks:
+            checked = kernel_sweep(cuda)
+            log(f"kernels vs plain versions: bitwise equal over "
+                f"{checked['filter_scan']} literal and "
+                f"{checked['filter_scan_batch']} slotted programs "
+                f"({checked['variants']} compiled variants)")
         timings.update(kernel_timings(cuda))
-    log(f"CSV decoders vs plain versions: parse_i32 and parse_f32 bitwise "
-        f"equal on the card and on the CPU over {parse_sweep(cuda)} cases")
+    if checks:
+        log(f"CSV decoder vs plain versions: parse_i32, parse_f32 and "
+            f"parse_fields bitwise equal on the card and on the CPU over "
+            f"{parse_sweep(cuda)} cases")
     timings.update(parse_timings(cuda))
     for name, t in timings.items():
+        extra = ""
+        if "sector_floor_ms" in t:
+            extra = (f", sector floor {t['sector_floor_ms']:.4f} ms "
+                     f"(64-byte blocks {t['floor64_ms']:.4f} ms), "
+                     f"{t['launches_per_call']} launches a call")
         log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms (profiler "
             f"device time {fmt_ms(t['device_ms'])}), plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}) [{smi}]")
+            f"{fmt_ms(t['plain_ms'])}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}){extra} [{smi}]")
 
     launches = {}
     host_csv = None
-    if main_path_too:
+    if main_path_too and checks:
         stats = main_path(K, cuda)
         launches["main"], host_csv = stats["launches"], stats["host_csv"]
         launches["literal-route"] = literal_route(K, stats["reference"],
@@ -1487,32 +1804,52 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
             f"{launches['literal-route']['filter_scan']} times, results "
             f"equal the main path's")
         del stats
-    if async_too:
+    if async_too and checks:
         launches["async"] = async_phases(cuda, smi,
                                          host_csv or host_csv_passes())
+    # Rows 3 and 3b of the kernel table are one device kernel: one entry,
+    # timed at the F1 scan's three fields (the multi-field shape the CSV
+    # scans launch) and counting the launches of parse_fields, which the
+    # scans call; the one-field forms and the other shapes are its
+    # sub-entries.  The computed sector floors stay in the log.
     kernels = []
-    for name, path, src, line in (
+    for name, path, src, line, counted, main, subs in (
             ("filter_scan_batch", "main", FILTER_SCAN_CU,
-             "src/repro/kernels/filter_project/kernel.py:122"),
+             "src/repro/kernels/filter_project/kernel.py:122",
+             "filter_scan_batch", "filter_scan_batch", ("nq64",)),
             ("filter_scan", "literal-route", FILTER_SCAN_CU,
-             "src/repro/kernels/filter_project/kernel.py:57"),
+             "src/repro/kernels/filter_project/kernel.py:57",
+             "filter_scan", "filter_scan", ()),
             ("parse_i32", "async", CSV_PARSE_CU,
-             "src/repro/kernels/filter_project/kernel.py:179"),
-            # no TPU kernel: the JAX package decodes this field with XLA
-            ("parse_f32", "async", CSV_PARSE_CU,
-             "src/repro/relational/physical.py:289")):
-        if name not in timings:
+             "src/repro/kernels/filter_project/kernel.py:179",
+             "parse_fields", "parse_fields/f1",
+             ("parse_i32", "parse_i32/staged", "parse_f32",
+              "parse_f32/staged", "parse_fields/f1/per-field",
+              "parse_fields/all10", "parse_fields/all10/per-field"))):
+        if main not in timings:
             continue
-        t = timings[name]
-        kernels.append(dict(
+        t = timings[main]
+        entry = dict(
             name=name, route="cuda", source=src, replaces=line,
-            launches=launches.get(path, {}).get(name, 0), path=path,
-            launches_by_path={p: c.get(name, 0)
+            kernel=("parse_fields_kernel" if counted == "parse_fields"
+                    else "filter_scan_kernel"),
+            launches=launches.get(path, {}).get(counted, 0), path=path,
+            launches_by_path={p: c.get(counted, 0)
                               for p, c in launches.items()},
             max_abs_err=t["max_abs_err"], ms=t["ms"],
             device_ms=t["device_ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=None, shape=t["shape"]))
+            library_ms=None, shape=t["shape"])
+        if counted == "parse_fields":
+            # row 3b: the JAX package decodes f32 fields with XLA
+            entry["also_replaces"] = "src/repro/relational/physical.py:289"
+        for sub in subs:
+            key = f"{name}/{sub}" if f"{name}/{sub}" in timings else sub
+            entry[sub.replace("parse_fields/", "").replace("/", "_")
+                  .replace("-", "_")] = {
+                k: v for k, v in timings[key].items()
+                if k not in ("sector_floor_ms", "floor64_ms")}
+        kernels.append(entry)
     return kernels
 
 
@@ -1570,9 +1907,16 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
-                                       "serving"),
+                                       "serving", "timings"),
                     help="run one group of phases (bring-up); default all")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="with --only timings: time the kernels of the "
+                         "checkout at TREE (for example an earlier commit "
+                         "unpacked by git archive) instead of this one")
     args = ap.parse_args(argv)
+    tree = args.tree.resolve()
+    if tree != ROOT and args.only != "timings":
+        ap.error("--tree needs --only timings")
     # pins cuBLAS's workspace so that deterministic algorithms are
     # available to the serving phase; read when CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1584,11 +1928,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found next to the script",
+    if not (tree / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: src/repro_torch not found in {tree}",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(tree / "src"))
     t_all = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1597,19 +1941,22 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
-    seconds, usage = build_kernels()
-    log(f"build: {seconds:.1f} s (nvcc, sm_90a, {len(usage)} sources in "
+        f"{torch.version.cuda}; kernels of {tree}")
+    sources = ((FILTER_SCAN_CU, CSV_PARSE_CU) if args.only == "timings"
+               else SOURCES)
+    seconds, usage = build_kernels(sources, tree)
+    log(f"build: {seconds:.1f} s (nvcc, sm_90a, {len(sources)} sources in "
         f"parallel)")
     for name, summary in usage.items():
         log(f"ptxas {name}: {summary}")
 
     cuda = torch.device("cuda")
     kernels = []
-    if args.only in (None, "relational", "async"):
+    if args.only in (None, "relational", "async", "timings"):
         kernels += relational_phases(
             cuda, smi, main_path_too=args.only != "async",
-            async_too=args.only != "relational")
+            async_too=args.only != "relational",
+            checks=args.only != "timings")
         torch.cuda.empty_cache()
     if args.only in (None, "attention", "serving"):
         kernels += attention_phases(cuda, smi,

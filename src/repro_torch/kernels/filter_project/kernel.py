@@ -2,20 +2,27 @@
 C++, ``csrc/``).
 
 The predicate program is encoded on the host into a small bytecode
-(:func:`encode_program`) that one compiled kernel interprets per row, so
-``nvcc`` runs once for every program the engine produces.  The
-wrappers :func:`filter_scan` and :func:`filter_scan_batch` launch that
-kernel for CUDA tensors, and :func:`parse_i32` / :func:`parse_f32` the
-fixed-width field decoders of ``csrc/csv_parse.cu``; each takes the
-plain torch version in ``ref.py`` only for CPU tensors.  Each launch
-adds one to its wrapper's entry in :data:`LAUNCHES`.
+(:func:`encode_program`) that one compiled kernel interprets, R rows a
+thread, so ``nvcc`` runs once for every program the engine produces;
+the host picks the compiled variant whose register stack holds the
+program's depth, and how many queries of a window a thread evaluates
+at once (:func:`kernel_variant`).  The wrappers
+:func:`filter_scan` and :func:`filter_scan_batch` launch that kernel for
+CUDA tensors, and :func:`parse_fields` (with its one-field forms
+:func:`parse_i32` / :func:`parse_f32`) the fixed-width field decoder of
+``csrc/csv_parse.cu``, which decodes every field it is given in one
+pass over the rows; each takes the plain torch version in ``ref.py``
+only for CPU tensors.  Each launch adds one to its wrapper's entry in
+:data:`LAUNCHES`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,12 +30,15 @@ import torch
 from ...relational.expr import fold_int_cmp
 from .. import _build
 from .ref import (_CMP_OPSYM, _SYM_CMP, PredProgram, filter_scan_batch_ref,
-                  filter_scan_ref, parse_f32_ref, parse_i32_ref)
+                  filter_scan_ref, parse_f32_ref, parse_fields_ref,
+                  parse_i32_ref)
 
-DEFAULT_BLOCK = 2048   # rows per count-block (one CUDA block each)
+DEFAULT_BLOCK = 2048   # rows per count-block
 MAX_COLS = 16          # predicate columns one launch can read
-MAX_STACK = 64         # boolean stack depth (bits of a 64-bit register)
-_MAX_SMEM = 48 * 1024  # static-launch shared memory limit, bytes
+MAX_STACK = 64         # boolean stack depth
+ROWS_PER_THREAD = 16   # rows a thread interprets at once (compiled in)
+QUERIES_PER_PASS = 4   # queries of a window a thread evaluates at once
+MAX_FIELDS = 32        # CSV fields one decoder launch takes
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "filter_scan.cu"
 _CSV_SOURCE = Path(__file__).resolve().parent / "csrc" / "csv_parse.cu"
@@ -41,8 +51,8 @@ _CMP_CODE = {"lt": 0, "le": 1, "gt": 2, "ge": 3, "eq": 4, "ne": 5}
 _CMP_NAME = {v: k for k, v in _CMP_CODE.items()}
 _TYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
-LAUNCHES = {"filter_scan": 0, "filter_scan_batch": 0, "parse_i32": 0,
-            "parse_f32": 0}
+LAUNCHES = {"filter_scan": 0, "filter_scan_batch": 0, "parse_fields": 0,
+            "parse_i32": 0, "parse_f32": 0}
 
 
 def reset_launches() -> None:
@@ -65,6 +75,8 @@ class EncodedProgram:
     # columns (0 for a literal program)
     n_islots: int
     n_fslots: int
+    # the most entries the program's boolean stack holds at once
+    max_depth: int = 1
 
     @property
     def has_slots(self) -> bool:
@@ -191,7 +203,26 @@ def encode_program(program: PredProgram, dtypes: Sequence[torch.dtype],
         lit_f=torch.tensor(lit_f or [0.0], dtype=torch.float32,
                            device=device),
         col_types=tuple(types), n_islots=n_slots["$i"],
-        n_fslots=n_slots["$f"])
+        n_fslots=n_slots["$f"], max_depth=max_depth)
+
+
+def kernel_variant(max_depth: int, n_q: int = 1) -> Tuple[int, int]:
+    """The compiled variant ``(W, G)`` that runs a program of stack depth
+    ``max_depth`` for ``n_q`` queries.  A stack entry is a lane mask of
+    ROWS_PER_THREAD bits; W is the number of 64-bit words below the
+    stack's top (the kernel pushes one empty entry under the first leaf,
+    so they hold ``max_depth`` entries), the least power of two that
+    holds them; G is the number of queries a thread evaluates at once,
+    each with its own stack (QUERIES_PER_PASS when there are that many
+    and W is 1 or 2, else 1)."""
+    if not 1 <= max_depth <= MAX_STACK:
+        raise ValueError(f"stack depth {max_depth} outside 1..{MAX_STACK}")
+    words = 1
+    while 64 * words < max_depth * ROWS_PER_THREAD:
+        words *= 2
+    queries = QUERIES_PER_PASS if n_q >= QUERIES_PER_PASS and words <= 2 \
+        else 1
+    return words, queries
 
 
 def decode_program(enc: EncodedProgram) -> PredProgram:
@@ -232,10 +263,11 @@ def _lib() -> ctypes.CDLL:
         ptrs = ctypes.POINTER(ctypes.c_longlong)
         types = ctypes.POINTER(ctypes.c_int)
         lib.filter_scan_launch.argtypes = [
-            ptrs, types, i, p, i, p, p, ll, ll, i, p, p, p]
+            ptrs, types, i, p, i, p, i, p, i, ll, ll, i, i, p, p, p]
         lib.filter_scan_launch.restype = i
         lib.filter_scan_batch_launch.argtypes = [
-            ptrs, types, i, p, i, p, p, p, i, p, i, i, ll, ll, i, p, p, p]
+            ptrs, types, i, p, i, p, i, p, i, p, i, p, i, i, ll, ll, i, i, i,
+            p, p, p]
         lib.filter_scan_batch_launch.restype = i
         _LIB = lib
     return _LIB
@@ -246,9 +278,11 @@ def _csv_lib() -> ctypes.CDLL:
     if _CSV_LIB is None:
         lib = _build.load(_CSV_SOURCE)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.parse_i32_launch, lib.parse_f32_launch):
-            fn.argtypes = [p, ll, ll, p, p]
-            fn.restype = i
+        ints = ctypes.POINTER(ctypes.c_int)
+        lib.parse_fields_launch.argtypes = [
+            p, ll, ll, p, p, i, ints, ints, ctypes.POINTER(p), i, p, i, i,
+            ll, p]
+        lib.parse_fields_launch.restype = i
         _CSV_LIB = lib
     return _CSV_LIB
 
@@ -279,14 +313,11 @@ def _col_args(columns, enc: EncodedProgram):
 
 
 def _check_launch(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _smem_ok(enc: EncodedProgram, n_q: int) -> None:
-    if (4 * enc.words.shape[0] + n_q) * 4 > _MAX_SMEM:
+    if rc == -1:
         raise RuntimeError("program and query count exceed the kernel's "
                            "shared memory")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def filter_scan(columns: Sequence[torch.Tensor], program: PredProgram,
@@ -305,25 +336,14 @@ def filter_scan(columns: Sequence[torch.Tensor], program: PredProgram,
     """
     if columns[0].device.type == "cpu":
         return filter_scan_ref(columns, program, nrows, block)
-    n = _check_columns(columns, block)
+    _check_columns(columns, block)
     dev = columns[0].device
     enc = encoded or encode_program(program, [c.dtype for c in columns], dev)
     if enc.has_slots:
         raise ValueError("filter_scan takes a literal program; slotted "
                          "programs go through filter_scan_batch")
-    _smem_ok(enc, 1)
-    mask = torch.empty((n,), dtype=torch.bool, device=dev)
-    counts = torch.empty((n // block,), dtype=torch.int32, device=dev)
-    ptrs, types, n_cols = _col_args(columns, enc)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().filter_scan_launch(
-            ptrs, types, n_cols, enc.words.data_ptr(), enc.words.shape[0],
-            enc.lit_i.data_ptr(), enc.lit_f.data_ptr(), n, int(nrows),
-            block, mask.data_ptr(), counts.data_ptr(), stream)
-    _check_launch(rc, "filter_scan")
-    LAUNCHES["filter_scan"] += 1
-    return mask, counts
+    mask, counts = _launch(columns, enc, nrows, block, None)
+    return mask[0], counts[0]
 
 
 def filter_scan_batch(columns: Sequence[torch.Tensor],
@@ -347,7 +367,7 @@ def filter_scan_batch(columns: Sequence[torch.Tensor],
     if columns[0].device.type == "cpu":
         return filter_scan_batch_ref(columns, program, nrows, iconsts,
                                      fconsts, block)
-    n = _check_columns(columns, block)
+    _check_columns(columns, block)
     dev = columns[0].device
     if (iconsts.dtype != torch.int32 or fconsts.dtype != torch.float32
             or iconsts.ndim != 2 or fconsts.ndim != 2
@@ -356,53 +376,202 @@ def filter_scan_batch(columns: Sequence[torch.Tensor],
         raise ValueError("iconsts/fconsts must be (n_q, k) int32/float32 "
                          "tensors on the columns' device")
     iconsts, fconsts = iconsts.contiguous(), fconsts.contiguous()
-    n_q = iconsts.shape[0]
     enc = encoded or encode_program(program, [c.dtype for c in columns], dev)
     if (iconsts.shape[1] < enc.n_islots or fconsts.shape[1] < enc.n_fslots):
         raise ValueError("operand tensors have fewer lanes than the "
                          "program's slots")
-    _smem_ok(enc, n_q)
+    return _launch(columns, enc, nrows, block, (iconsts, fconsts))
+
+
+def _launch(columns, enc: EncodedProgram, nrows: int, block: int,
+            consts: Optional[Tuple[torch.Tensor, torch.Tensor]]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the filter kernel on checked inputs: the literal
+    program (``consts`` None, counted as ``filter_scan``) or the slotted
+    one for the ``(iconsts, fconsts)`` operand rows
+    (``filter_scan_batch``).  Returns (mask bool (n_q, N), counts int32
+    (n_q, N // block)), n_q = 1 for a literal program."""
+    dev = columns[0].device
+    n = columns[0].shape[0]
+    n_q = 1 if consts is None else consts[0].shape[0]
     mask = torch.empty((n_q, n), dtype=torch.bool, device=dev)
     counts = torch.empty((n_q, n // block), dtype=torch.int32, device=dev)
     ptrs, types, n_cols = _col_args(columns, enc)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().filter_scan_batch_launch(
-            ptrs, types, n_cols, enc.words.data_ptr(), enc.words.shape[0],
-            enc.lit_i.data_ptr(), enc.lit_f.data_ptr(),
-            iconsts.data_ptr(), iconsts.shape[1], fconsts.data_ptr(),
-            fconsts.shape[1], n_q, n, int(nrows), block, mask.data_ptr(),
-            counts.data_ptr(), stream)
-    _check_launch(rc, "filter_scan_batch")
-    LAUNCHES["filter_scan_batch"] += 1
+    words, queries = kernel_variant(enc.max_depth, n_q)
+    program = (ptrs, types, n_cols, enc.words.data_ptr(), enc.words.shape[0],
+               enc.lit_i.data_ptr(), enc.lit_i.numel(), enc.lit_f.data_ptr(),
+               enc.lit_f.numel())
+    shape = (n, int(nrows), block, words)
+    out = (mask.data_ptr(), counts.data_ptr())
+    if consts is None:
+        name = "filter_scan"
+        rc = _build.launch_on(dev, _lib().filter_scan_launch,
+                              program + shape + out)
+    else:
+        name = "filter_scan_batch"
+        ic, fc = consts
+        rc = _build.launch_on(dev, _lib().filter_scan_batch_launch, program + (
+            ic.data_ptr(), ic.shape[1], fc.data_ptr(), fc.shape[1], n_q)
+            + shape + (queries,) + out)
+    _check_launch(rc, name)
+    LAUNCHES[name] += 1
     return mask, counts
 
 
-def _parse(digits: torch.Tensor, width: int, dtype: torch.dtype,
-           name: str) -> torch.Tensor:
-    """Launch the ``name`` decoder over the ``(n, width)`` field view."""
-    dev = digits.device
-    if dev.type != "cuda":
-        raise ValueError(f"the kernel runs on CUDA tensors, not {dev.type}")
-    if digits.dtype != torch.uint8 or digits.ndim != 2 \
-            or digits.shape[1] != width:
+_FIELD_DTYPE = {10: torch.int32, 8: torch.float32}
+_MAX_PLAN_WORDS = 4096    # words of a period one decoder launch stages
+_PLANS: Dict[tuple, tuple] = {}
+
+
+@dataclass(frozen=True)
+class FieldPlan:
+    """Where the decoder finds fields ``(byte offset, width)`` of rows
+    ``stride`` bytes apart from a 16-byte aligned base.  The layout
+    repeats on 16-byte word boundaries every ``period_rows`` rows
+    (``16 / gcd(stride, 16)``), ``period_words`` words apart; ``words``
+    are the words of a period (counted from its first byte, ascending)
+    that hold a field byte, which the kernel stages packed, in this
+    order; ``at[j * n_fields + f]`` is where field f of the period's row
+    j starts in the packed words, in bytes.  A field's bytes are
+    contiguous there: its two words are consecutive in ``words``."""
+
+    period_rows: int
+    period_words: int
+    words: Tuple[int, ...]
+    at: Tuple[int, ...]
+
+
+def field_word_plan(stride: int, fields: Sequence[Tuple[int, int]]
+                    ) -> FieldPlan:
+    """The decoder's plan for ``fields`` of rows ``stride`` bytes apart
+    (see :class:`FieldPlan`)."""
+    rows = 16 // math.gcd(stride, 16)
+    starts = [r * stride + off for r in range(rows) for off, _ in fields]
+    ends = [r * stride + off + w for r in range(rows) for off, w in fields]
+    words = sorted({w for a, b in zip(starts, ends)
+                    for w in range(a // 16, (b - 1) // 16 + 1)})
+    index = {w: k for k, w in enumerate(words)}
+    return FieldPlan(rows, rows * stride // 16, tuple(words),
+                     tuple(16 * index[a // 16] + a % 16 for a in starts))
+
+
+@functools.lru_cache(maxsize=256)
+def _field_groups(stride: int, fields: Tuple[Tuple[int, int], ...]):
+    """``fields`` cut into runs of at most MAX_FIELDS fields whose plans
+    stage at most _MAX_PLAN_WORDS words a period (one field stages at
+    most 32), each with its plan: one launch each."""
+    groups, start = [], 0
+    while start < len(fields):
+        stop = min(start + MAX_FIELDS, len(fields))
+        while True:
+            plan = field_word_plan(stride, fields[start:stop])
+            if len(plan.words) <= _MAX_PLAN_WORDS or stop == start + 1:
+                break
+            stop -= 1
+        groups.append((start, stop, plan))
+        start = stop
+    return groups
+
+
+def _plan_tensor(plan: FieldPlan, device: torch.device) -> torch.Tensor:
+    """The plan as the kernel reads it, on ``device``, uploaded once per
+    layout and device."""
+    key = (plan, str(device))
+    t = _PLANS.get(key)
+    if t is None:
+        t = _PLANS[key] = torch.tensor(plan.words + plan.at,
+                                       dtype=torch.int32, device=device)
+    return t
+
+
+def _check_rows(raw: torch.Tensor, what: str) -> None:
+    if raw.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, not "
+                         f"{raw.device.type}")
+    if raw.dtype != torch.uint8 or raw.ndim != 2:
+        raise ValueError(f"{what} takes (n, w) uint8 rows, not "
+                         f"{tuple(raw.shape)} {raw.dtype}")
+    # a raw row matrix or a field of one: bytes adjacent, rows
+    # row_stride apart
+    if raw.stride(1) != 1 or raw.stride(0) < 0:
+        raise ValueError(f"{what} takes rows of adjacent bytes at a "
+                         f"non-negative row stride")
+
+
+def _decode(raw: torch.Tensor, fields: Sequence[Tuple[int, int]],
+            name: str, direct: Optional[bool] = None
+            ) -> List[torch.Tensor]:
+    """The decoder's launches over ``fields`` of ``raw`` (checked): one
+    for up to MAX_FIELDS fields (more only for rows so wide that a
+    period's words overflow a launch); each adds one to
+    ``LAUNCHES[name]``.  A launch of one field runs the kernel's direct
+    mode, of more its staged mode (``direct`` forces one)."""
+    dev, n = raw.device, raw.shape[0]
+    outs = [torch.empty((n,), dtype=_FIELD_DTYPE[w], device=dev)
+            for _, w in fields]
+    if n == 0:
+        return outs
+    # the kernel reads 16-byte words from an aligned base, and only
+    # inside the allocation the rows lie in
+    ptr = raw.data_ptr()
+    base, shift = ptr & ~15, ptr & 15
+    storage = raw.untyped_storage()
+    lo = storage.data_ptr()
+    hi = lo + storage.nbytes()
+    stride = raw.stride(0)
+    shifted = tuple((off + shift, w) for off, w in fields)
+    for start, stop, plan in _field_groups(stride, shifted):
+        k = stop - start
+        offs = (ctypes.c_int * k)(*[off for off, _ in shifted[start:stop]])
+        widths = (ctypes.c_int * k)(*[w for _, w in shifted[start:stop]])
+        ptrs = (ctypes.c_void_p * k)(*[o.data_ptr()
+                                       for o in outs[start:stop]])
+        one = k == 1 if direct is None else direct
+        rc = _build.launch_on(dev, _csv_lib().parse_fields_launch, (
+            base, stride, n, lo, hi, k, offs, widths, ptrs, int(one),
+            _plan_tensor(plan, dev).data_ptr(), len(plan.words),
+            plan.period_rows, plan.period_words))
+        _check_launch(rc, name)
+        LAUNCHES[name] += 1
+    return outs
+
+
+def parse_fields(raw: torch.Tensor, fields: Sequence[Tuple[int, int]]
+                 ) -> List[torch.Tensor]:
+    """Every numeric field of a fixed-width CSV row matrix in one pass.
+
+    Args:
+      raw: ``(n, w)`` uint8 rows (bytes adjacent, any row stride), read
+        in place.
+      fields: ``(byte offset, width)`` of each field in a row: width 10
+        decodes zero-padded ASCII digits to int32 (as :func:`parse_i32`),
+        width 8 fractional digits to float32 (as :func:`parse_f32`).
+    Returns:
+      One ``(n,)`` tensor per field, in order, bitwise equal to the
+      one-field decoders.  On the card one launch decodes up to
+      MAX_FIELDS fields.
+    """
+    fields = tuple((int(off), int(w)) for off, w in fields)
+    for off, w in fields:
+        if w not in _FIELD_DTYPE or off < 0 or off + w > raw.shape[-1]:
+            raise ValueError(f"field (offset {off}, width {w}) is not a "
+                             f"10- or 8-byte field of a {raw.shape[-1]}-byte "
+                             f"row")
+    if raw.device.type == "cpu":
+        return parse_fields_ref(raw, fields)
+    _check_rows(raw, "parse_fields")
+    if not fields:
+        return []
+    return _decode(raw, fields, "parse_fields")
+
+
+def _parse_one(digits: torch.Tensor, width: int, name: str) -> torch.Tensor:
+    """``digits`` as the one field of its rows: one decoder launch."""
+    _check_rows(digits, name)
+    if digits.shape[1] != width:
         raise ValueError(f"{name} takes (n, {width}) uint8 digits, not "
                          f"{tuple(digits.shape)} {digits.dtype}")
-    # a field of a raw row matrix: bytes adjacent, rows row_stride apart
-    if digits.stride(1) != 1 or digits.stride(0) < 0:
-        raise ValueError(f"{name} takes rows of adjacent bytes at a "
-                         f"non-negative row stride")
-    n = digits.shape[0]
-    out = torch.empty((n,), dtype=dtype, device=dev)
-    if n == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_csv_lib(), f"{name}_launch")(
-            digits.data_ptr(), digits.stride(0), n, out.data_ptr(), stream)
-    _check_launch(rc, name)
-    LAUNCHES[name] += 1
-    return out
+    return _decode(digits, ((0, width),), name)[0]
 
 
 def parse_i32(digits: torch.Tensor) -> torch.Tensor:
@@ -412,7 +581,7 @@ def parse_i32(digits: torch.Tensor) -> torch.Tensor:
     (``raw[:, off:off + 10]``): the kernel reads it in place."""
     if digits.device.type == "cpu":
         return parse_i32_ref(digits)
-    return _parse(digits, 10, torch.int32, "parse_i32")
+    return _parse_one(digits, 10, "parse_i32")
 
 
 def parse_f32(digits: torch.Tensor) -> torch.Tensor:
@@ -421,4 +590,4 @@ def parse_f32(digits: torch.Tensor) -> torch.Tensor:
     :func:`parse_i32`."""
     if digits.device.type == "cpu":
         return parse_f32_ref(digits)
-    return _parse(digits, 8, torch.float32, "parse_f32")
+    return _parse_one(digits, 8, "parse_f32")

@@ -4,8 +4,9 @@
 postfix program, ``compile_predicate_slots`` into its slotted plan-shape
 form, and ``filter_mask`` / ``filter_mask_batch`` pad the columns to a
 block multiple and run the kernel (CUDA tensors) or its plain torch
-version (CPU tensors).  ``parse_i32`` / ``parse_f32`` decode the
-fixed-width numeric fields of a CSV scan.
+version (CPU tensors).  ``parse_fields`` decodes every fixed-width
+numeric field of a CSV scan in one pass (``parse_i32`` / ``parse_f32``
+one field each).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 from ...relational import expr as E
 from .kernel import (DEFAULT_BLOCK, EncodedProgram, filter_scan,
                      filter_scan_batch)
-from .kernel import parse_f32, parse_i32  # noqa: F401  (re-exported)
+# re-exported: the CSV scan's decoders
+from .kernel import parse_f32, parse_fields, parse_i32  # noqa: F401
 from .ref import PredProgram
 
 _OPMAP = {"<": "lt", "<=": "le", ">": "gt", ">=": "ge", "==": "eq",

@@ -5,7 +5,7 @@ These are what the kernel wrappers run for a CPU tensor, and what
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -170,3 +170,13 @@ def parse_f32_ref(digits: torch.Tensor) -> torch.Tensor:
     for k, p in enumerate(_POW10_F):
         acc = acc + d[:, k] * p
     return acc * torch.tensor(1e-8, dtype=torch.float32, device=d.device)
+
+
+def parse_fields_ref(raw: torch.Tensor, fields: Sequence[Tuple[int, int]]
+                     ) -> List[torch.Tensor]:
+    """Fields ``(byte offset, width)`` of ``(n, w)`` uint8 rows: width 10
+    through :func:`parse_i32_ref`, width 8 through :func:`parse_f32_ref`,
+    one tensor per field."""
+    return [parse_i32_ref(raw[:, off:off + 10]) if w == 10
+            else parse_f32_ref(raw[:, off:off + 8])
+            for off, w in fields]

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -295,18 +295,32 @@ class ExecContext:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
-def _parse_i32(digits: torch.Tensor) -> torch.Tensor:
-    """(n, 10) uint8 zero-padded decimal digits -> int32: the CUDA
-    ``parse_i32`` kernel on the card, its plain version on the CPU."""
-    from ..kernels.filter_project.ops import parse_i32
-    return parse_i32(digits)
+def _parse_fields(raw: torch.Tensor, fields) -> List[torch.Tensor]:
+    """Fields ``(byte offset, width)`` of the raw CSV rows, decoded in
+    one pass (width 10 -> int32, width 8 -> float32): one launch of the
+    CUDA ``parse_fields`` kernel on the card, the plain versions on the
+    CPU."""
+    from ..kernels.filter_project.ops import parse_fields
+    return parse_fields(raw, fields)
 
 
-def _parse_f32(digits: torch.Tensor) -> torch.Tensor:
-    """(n, 8) uint8 fractional digits -> float32 in [0, 1): the CUDA
-    ``parse_f32`` kernel on the card, its plain version on the CPU."""
-    from ..kernels.filter_project.ops import parse_f32
-    return parse_f32(digits)
+def _csv_columns(raw: torch.Tensor, schema, needed: Tuple[str, ...],
+                 nrows: int, ctx: "ExecContext") -> Dict[str, torch.Tensor]:
+    """The ``needed`` columns of a CSV scan's raw rows: every numeric
+    field decoded by ONE ``_parse_fields`` call, string fields the raw
+    byte slice."""
+    offsets = schema.csv_offsets()
+    numeric = [n for n in needed
+               if schema.coltype(n).kind in ("i32", "f32")]
+    decoded = dict(zip(numeric, _parse_fields(
+        raw, [offsets[n] for n in numeric]))) if numeric else {}
+    cols: Dict[str, torch.Tensor] = {}
+    for name in needed:
+        off, w = offsets[name]
+        ctx.metrics.bytes_parsed += nrows * w
+        cols[name] = decoded[name] if name in decoded \
+            else raw[:, off:off + w]
+    return cols
 
 
 def _pred_mask(pred: E.Expr, names: Tuple[str, ...], nrows: int, cols):
@@ -663,18 +677,7 @@ def _exec_scan_partitioned(node: L.Scan, st: TableStorage,
     if st.fmt == "csv":
         raw = _parts_assembled(ctx, st, "__csv__", st.csv_bytes,
                                parts, ranges, cap)
-        offsets = st.schema.csv_offsets()
-        for name in needed:
-            off, w = offsets[name]
-            fieldb = raw[:, off:off + w]
-            t = st.schema.coltype(name)
-            ctx.metrics.bytes_parsed += nrows * w
-            if t.kind == "i32":
-                cols[name] = _parse_i32(fieldb)
-            elif t.kind == "f32":
-                cols[name] = _parse_f32(fieldb)
-            else:
-                cols[name] = fieldb
+        cols = _csv_columns(raw, st.schema, needed, nrows, ctx)
     else:
         for name in needed:
             cols[name] = _parts_assembled(
@@ -696,18 +699,7 @@ def _exec_scan(node: L.Scan, ctx: ExecContext,
         # per scan (it is the CSV format's intrinsic cost, and what the
         # paper's covering-expression cache exists to avoid)
         raw = _scan_cached(ctx, (st.name, "__csv__"), st.csv_bytes, cap)
-        offsets = st.schema.csv_offsets()
-        for name in needed:
-            off, w = offsets[name]
-            fieldb = raw[:, off:off + w]
-            t = st.schema.coltype(name)
-            ctx.metrics.bytes_parsed += st.nrows * w
-            if t.kind == "i32":
-                cols[name] = _parse_i32(fieldb)
-            elif t.kind == "f32":
-                cols[name] = _parse_f32(fieldb)
-            else:
-                cols[name] = fieldb
+        cols = _csv_columns(raw, st.schema, needed, st.nrows, ctx)
     else:
         for name in needed:
             cols[name] = _scan_cached(

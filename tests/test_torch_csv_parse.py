@@ -4,7 +4,7 @@ Seeded numpy digit fields go through the JAX package's Pallas
 ``parse_i32`` (interpret mode), its plain ``parse_i32_ref`` and its
 scan's ``_parse_i32`` / ``_parse_f32``, and through the port's wrappers
 on CPU tensors (which run the plain torch versions), ``ref.py`` and the
-port's scan decoders.  Tolerance: none; every int32 and every f32 bit
+port's scan decoder.  Tolerance: none; every int32 and every f32 bit
 pattern must be equal, on the cases the card sweep of ``chip_smoke.py``
 holds the CUDA kernels to: 10-digit values past 2^31 (which wrap modulo
 2^32), rows of zero bytes (the padding rows past the live count, whose
@@ -69,9 +69,9 @@ def _port(raw: np.ndarray):
     assert fi.stride() == (ROW, 1)          # a view, not a copy
     return {
         "i32": [TK.parse_i32(fi), TO.parse_i32(fi), TR.parse_i32_ref(fi),
-                TP._parse_i32(fi)],
+                TP._parse_fields(fi, [(0, 10)])[0]],
         "f32": [TK.parse_f32(ff), TO.parse_f32(ff), TR.parse_f32_ref(ff),
-                TP._parse_f32(ff)],
+                TP._parse_fields(ff, [(0, 8)])[0]],
     }
 
 

@@ -317,3 +317,172 @@ def test_f32_compare_rounds_the_literal_like_jax():
                                        {"x": jnp.asarray(a)}))
         got = TE.eval_expr(TE.cmp("x", op, v), {"x": torch.from_numpy(a)})
         assert np.array_equal(want, got.numpy()), (op, v)
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernel's stack variants and blocking, modelled on the host
+# ---------------------------------------------------------------------------
+# compiled variants of csrc/filter_scan.cu: (stack words, queries a pass)
+COMPILED = {(w, 1) for w in (1, 2, 4, 8, 16)} | {(1, 4), (2, 4)}
+ROWS = 16    # csrc/filter_scan.cu's kRows
+
+
+def _depth(prog) -> int:
+    """The most entries a postfix program's stack holds at once."""
+    depth = most = 0
+    for op in prog:
+        depth += {"and": -1, "or": -1, "not": 0}.get(op[0], 1)
+        most = max(most, depth)
+    return most
+
+
+def _deep(depth: int):
+    """``depth`` compares pushed, then folded by and/or/not."""
+    prog = [("gt", k % 3, k - depth // 2) for k in range(depth)]
+    for k in range(depth - 1):
+        if k % 3 == 0:
+            prog.append(("not",))
+        prog.append(("and",) if k % 2 else ("or",))
+    return tuple(prog)
+
+
+DEEP_PROGRAMS = {f"deep-{d}": _deep(d) for d in (2, 5, 9, 17, 33, 64)}
+
+
+@pytest.mark.parametrize("name", sorted(LITERAL_PROGRAMS)
+                         + sorted(SLOTTED_PROGRAMS) + sorted(DEEP_PROGRAMS))
+def test_encoder_depth_picks_a_compiled_variant_that_holds_it(name):
+    prog = {**LITERAL_PROGRAMS, **DEEP_PROGRAMS}.get(name)
+    if prog is None:
+        prog = SLOTTED_PROGRAMS[name][0]
+    dtypes = [torch.int32, torch.float32, torch.int32]
+    enc = TK.encode_program(prog, dtypes, CPU)
+    assert enc.max_depth == _depth(prog)
+    assert TK.ROWS_PER_THREAD == ROWS
+    words, queries = TK.kernel_variant(enc.max_depth)
+    assert (words, queries) in COMPILED and queries == 1
+    # the words below the top hold max_depth entries of R bits (one of
+    # them the empty entry pushed under the first leaf), and the next
+    # smaller variant would not
+    assert 64 * words >= enc.max_depth * ROWS
+    assert words == 1 or 64 * (words // 2) < enc.max_depth * ROWS
+    # a window evaluates QUERIES_PER_PASS queries a pass when the stack
+    # is one or two words
+    assert TK.kernel_variant(enc.max_depth, 64) == (
+        words, TK.QUERIES_PER_PASS if words <= 2 else 1)
+    assert TK.kernel_variant(enc.max_depth, 64) in COMPILED
+    assert TK.kernel_variant(enc.max_depth, 3)[1] == 1
+
+
+def test_every_program_the_encoder_accepts_has_a_variant():
+    """Every program the encoder accepts runs on a compiled variant: 16
+    columns of every dtype, stack depth 1 to 64, any query count."""
+    dtypes = [torch.int32, torch.int64, torch.float32] * 5 + [torch.int32]
+    for depth in range(1, TK.MAX_STACK + 1):
+        prog = tuple(("ge", k % 16, k) for k in range(depth)) \
+            + (("and",),) * (depth - 1)
+        enc = TK.encode_program(prog, dtypes, CPU)
+        assert enc.max_depth == depth
+        for n_q in (1, 4, 64):
+            assert TK.kernel_variant(depth, n_q) in COMPILED
+    with pytest.raises(ValueError):
+        TK.kernel_variant(TK.MAX_STACK + 1)
+
+
+def _run_lanes(prog, leaves, rows: int, words: int) -> int:
+    """The kernel's run_program: R-bit lane masks, the top in its own
+    register and the rest in a shift register of 64-bit words, newest
+    in the low bits; ``leaves`` gives each leaf's lane mask in order."""
+    full, mask64 = (1 << rows) - 1, (1 << 64) - 1
+    st, top, leaf = [0] * words, 0, iter(leaves)
+    for op in prog:
+        if op[0] in ("and", "or"):
+            x = st[0] & full
+            for w in range(words - 1):
+                st[w] = (st[w] >> rows) | ((st[w + 1] << (64 - rows))
+                                          & mask64)
+            st[words - 1] >>= rows
+            top = top & x if op[0] == "and" else top | x
+        elif op[0] == "not":
+            top = ~top & full
+        else:
+            for w in range(words - 1, 0, -1):
+                st[w] = ((st[w] << rows) | (st[w - 1] >> (64 - rows))) \
+                    & mask64
+            st[0] = ((st[0] << rows) | top) & mask64
+            top = next(leaf)
+    return top
+
+
+@pytest.mark.parametrize("depth", [1, 5, 9, 17, 33, 64])
+def test_lane_mask_stack_equals_a_list_stack(depth):
+    rng = np.random.default_rng(depth)
+    prog = _deep(depth)
+    n_leaves = sum(op[0] not in ("and", "or", "not") for op in prog)
+    words, _ = TK.kernel_variant(_depth(prog))
+    leaves = [int(v) for v in rng.integers(0, 1 << ROWS, n_leaves)]
+    stack, it = [], iter(leaves)
+    for op in prog:
+        if op[0] in ("and", "or"):
+            y, x = stack.pop(), stack.pop()
+            stack.append(x & y if op[0] == "and" else x | y)
+        elif op[0] == "not":
+            stack.append(~stack.pop() & ((1 << ROWS) - 1))
+        else:
+            stack.append(next(it))
+    assert _run_lanes(prog, leaves, ROWS, words) == stack[0]
+
+
+def _blocking(n: int, nrows: int, block: int, n_q: int, row_bytes: int,
+              rows: int):
+    """csrc/filter_scan.cu's blocking, run over a mask: which block and
+    tile each row's store and count fall in.  Returns (rows stored per
+    row, per-(query, count-block) counts) for an all-true program."""
+    threads = 256
+    while threads > 32 and threads * rows * row_bytes > 64 * 1024:
+        threads //= 2
+    tile = threads * rows
+    span = max(1, tile // block)
+    while span > 1 and 4 * n_q * span > 16 * 1024:
+        span //= 2
+    n_blocks = n // block
+    stored = np.zeros(n, int)
+    counts = np.zeros(n_blocks, int)
+    warp_counts = block % (32 * rows) == 0
+    for cta in range(-(-n_blocks // span)):
+        lo = cta * span * block
+        hi = min(lo + span * block, n)
+        live_hi = min(hi, nrows)
+        scount = np.zeros(span, int)
+        base = lo - lo % rows
+        while base < hi:
+            for t in range(threads):
+                r0 = base + t * rows
+                own = [r for r in range(r0, r0 + rows) if lo <= r < hi]
+                live = [r for r in own if r < live_hi]
+                for r in own:
+                    stored[r] += 1
+                if warp_counts and live:
+                    wrow0 = base + (t & ~31) * rows
+                    assert all((r - lo) // block == (wrow0 - lo) // block
+                               for r in live)
+                for r in live:
+                    scount[(r - lo) // block] += 1
+            base += tile
+        for j in range(span):
+            if cta * span + j < n_blocks:
+                counts[cta * span + j] = scount[j]
+    return stored, counts
+
+
+@pytest.mark.parametrize("n,nrows,block,n_q,row_bytes", [
+    (5120, 4321, 1024, 8, 8), (384, 300, 128, 3, 16),
+    (6144, 5000, 2048, 64, 8),
+    (100, 37, 4, 1, 4), (9, 5, 1, 64, 8), (300, 300, 300, 1, 128),
+    (3072, 3000, 1024, 8, 80)])
+def test_blocking_stores_and_counts_every_row_once(n, nrows, block, n_q,
+                                                   row_bytes):
+    stored, counts = _blocking(n, nrows, block, n_q, row_bytes, ROWS)
+    assert (stored == 1).all()
+    live = (np.arange(n) < nrows).reshape(n // block, block).sum(1)
+    assert np.array_equal(counts, live)
