@@ -33,12 +33,18 @@ process per source, all at once) and drives both of the port's paths:
   MQO engine three times (no MQO, MQO cold, MQO warm), which must
   generate the same tokens and take the MQO decisions computed on the
   CPU, and checks ``Model.forward`` with the flash kernel against the
-  plain attention on the card.
+  plain attention on the card;
+* families (S3): holds the Mamba, RG-LRU, MoE and MLA families'
+  ``-smoke`` configs on the card against the CPU (S3a), then serves
+  falcon-mamba-7b, recurrentgemma-9b, llama4-scout (6 of 48 layers) and
+  deepseek-v2 (4 of 60) at full width the same three ways (S3b), with
+  S2's checks per family.
 
-``--only relational|async|attention|serving|timings`` runs one group
-(for bring-up: ``relational`` leaves out A0 and A, ``async`` runs the
-CSV decoder, A0 and A, ``timings`` only times the filter kernel and the
-decoder); with no argument every phase runs.  ``--only timings --tree
+``--only relational|async|attention|serving|families|timings`` runs one
+group (for bring-up: ``relational`` leaves out A0 and A, ``async`` runs
+the CSV decoder, A0 and A, ``serving`` and ``families`` run S1 first,
+``timings`` only times the filter kernel and the decoder); with no
+argument every phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
 one's can be timed in turns on one card.  It prints one
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1317,6 +1324,7 @@ ATTN_ATOL = {"torch.float32": 2e-5, "torch.bfloat16": 3e-2}
 # them by its whole size).
 FORWARD_RTOL = 0.05
 SERVE_SEED = 0
+SERVE_BUDGET, SERVE_K = 64 << 20, 2    # prefix pool bytes, SE threshold
 GRANITE_LAYERS = 36
 
 
@@ -1522,12 +1530,17 @@ def attention_timings(device) -> dict:
     serving path's shapes (granite-8b, bf16): decode over a 1024-slot
     cache at 128 and 1024 live keys (batch 1, as the engine decodes) and
     at S2's 8 requests as one batch at 272 live keys, forward over a
-    256-token prompt.  Bounds count live bytes only: q and out once, the
-    live K/V rows once; the forward's operations are QK^T and PV over
-    the causal pairs."""
+    256-token prompt; and at S3's shapes (``s3/<model>``): decode at 144
+    live keys of a 256-slot cache and the forward over the 128-token
+    template, for recurrentgemma-9b's local layers (16 query heads of
+    256 over one KV head, window 2048) and llama4-scout's (40 over 8, head
+    dim 128).  Bounds count live bytes only: q and out once, the live K/V
+    rows once; the forward's operations are QK^T and PV over the causal
+    pairs."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import decode_ref, mha_ref
@@ -1555,19 +1568,45 @@ def attention_timings(device) -> dict:
                 f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) bf16, "
                 f"kv_len {live}", (DECODE_MARK,),
                 lambda: DK.LAUNCHES["decode_attention"])
-    t = 256
-    q = _randn((1, hq, t, d), bf16, device, gen)
-    k = _randn((1, hkv, t, d), bf16, device, gen)
-    v = _randn((1, hkv, t, d), bf16, device, gen)
-    out["flash_attention"] = _timing(
-        lambda: FK.flash_attention(q, k, v, causal=True),
-        lambda: mha_ref(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True),
-        (2 * q.numel() + 2 * k.numel()) * 2,
-        4 * hq * d * (t * (t + 1) // 2),
-        f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal",
-        (FLASH_MARK,), lambda: FK.LAUNCHES["flash_attention"])
+    def flash(key, hq, hkv, d, t, window=None):
+        q = _randn((1, hq, t, d), bf16, device, gen)
+        k = _randn((1, hkv, t, d), bf16, device, gen)
+        v = _randn((1, hkv, t, d), bf16, device, gen)
+        out[key] = _timing(
+            lambda: FK.flash_attention(q, k, v, causal=True, window=window),
+            lambda: mha_ref(q, k, v, causal=True, window=window),
+            # window >= t: SDPA's causal mask is the same function
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            (2 * q.numel() + 2 * k.numel()) * 2,
+            4 * hq * d * (t * (t + 1) // 2),
+            f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal"
+            + ("" if window is None else f", window {window}"),
+            (FLASH_MARK,), lambda: FK.LAUNCHES["flash_attention"])
+
+    flash("flash_attention", hq, hkv, d, 256)
+    for model, _ in FAMILIES:
+        cfg = get_config(model)
+        if not {"attn", "local"} & set(cfg.pattern):
+            continue
+        hq, hkv, d, live = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 144
+        window = cfg.window if "local" in cfg.pattern else None
+        q = _randn((1, hq, d), bf16, device, gen)
+        k = _randn((1, hkv, 256, d), bf16, device, gen)
+        v = _randn((1, hkv, 256, d), bf16, device, gen)
+        kv_len = torch.full((1,), live, dtype=torch.int32, device=device)
+        out[f"decode_attention/s3/{model}"] = _timing(
+            lambda: DK.decode_attention(q, k, v, kv_len),
+            lambda: decode_ref(q, k, v, kv_len),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k[:, :, :live], v[:, :, :live],
+                enable_gqa=True),
+            2 * q.numel() * 2 + 2 * hkv * live * d * 2 + 4,
+            4 * hq * live * d,
+            f"q (1, {hq}, {d}), cache (1, {hkv}, 256, {d}) bf16, kv_len "
+            f"{live}", (DECODE_MARK,),
+            lambda: DK.LAUNCHES["decode_attention"])
+        flash(f"flash_attention/s3/{model}", hq, hkv, d, 128, window)
     return out
 
 
@@ -1612,36 +1651,48 @@ def cpu_decisions(cfg, requests, budget: int, block: int, k: int) -> dict:
                               for ce in sol.ces))
 
 
-def serving_path(device, smi: str) -> dict:
-    """Phase S2: three runs of one engine and a forward, with the launch
-    counts set to 0 just before and read just after; then the checks
-    and the forward against the plain attention.  Raises on any failed
+def serve_model(tag: str, cfg, make_requests, device, smi: str, *,
+                cut: str, block: int, max_len: int, profile: bool) -> dict:
+    """Serve ``cfg`` (bf16, random weights from SERVE_SEED) three times
+    on one engine (no MQO, MQO cold, MQO warm) over ``make_requests(cfg)``
+    and run one ``Model.forward`` over the first template, with the
+    attention kernels' launch counts set to 0 just before and read just
+    after; then the checks: tokens bitwise equal across the runs,
+    prefill tokens warm < cold < baseline, one ``decode_attention``
+    launch per attention layer and decode step and one
+    ``flash_attention`` launch per attention layer in the forward, MQO
+    decisions equal the CPU's, finite logits, and the forward against
+    the plain attention within FORWARD_RTOL of the largest logit; with
+    ``profile``, a profiled window of 16 decode steps.  Log lines start
+    with ``tag``.  Returns the launch counts; raises on any failed
     check."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.models import attention as A
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import ffn as FFN
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import _clone_state, _generate_scan
 
-    cfg = replace(get_config("granite-8b"), attn_impl="pallas")
-    if cfg.n_layers != GRANITE_LAYERS or cfg.dtype != "bfloat16":
-        raise AssertionError("granite-8b is not the 36-layer bf16 config")
-    budget, block, k = 64 << 20, 64, 2
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{cfg.name} is not a bf16 config")
+    n_attn = sum(kind in ("attn", "local") for kind in cfg.layer_kinds())
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SERVE_SEED, device=device)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"serving: granite-8b, {n_params / 1e9:.3f} B parameters in bf16 "
-        f"on the card, initialised in {time.perf_counter() - t0:.1f} s")
-    eng = ServingEngine(cfg, params, pool_budget_bytes=budget,
-                        block_size=block, max_len=1024, k=k, policy="lru")
-    _, templates = serving_requests(cfg)
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers ({cut}), {n_attn} "
+        f"attention layers, {n_params / 1e9:.3f} B parameters in bf16 on "
+        f"the card ({2 * n_params / 1e9:.1f} GB), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = ServingEngine(cfg, params, pool_budget_bytes=SERVE_BUDGET,
+                        block_size=block, max_len=max_len, k=SERVE_K,
+                        policy="lru")
+    requests, templates = make_requests(cfg)
     tokens = torch.as_tensor(templates[0][None], device=device)
     runs = []
     # cuBLAS picks its algorithms deterministically under this flag (the
@@ -1652,20 +1703,28 @@ def serving_path(device, smi: str) -> dict:
         FK.reset_launches()
         for label, mqo in (("no MQO", False), ("MQO cold", True),
                            ("MQO warm", True)):
-            outs, rep = eng.run_batch(serving_requests(cfg)[0], mqo=mqo)
+            outs, rep = eng.run_batch(make_requests(cfg)[0], mqo=mqo)
             runs.append((label, outs, rep, set(eng.pool.keys())))
-        with torch.inference_mode():
-            logits = forward(params, tokens, cfg)
+        # the forward's MoE routes, which the plain forward replays
+        routes = []
+        real_route = FFN.route
+        FFN.route = lambda c, lg: routes.append(real_route(c, lg)) \
+            or routes[-1]
+        try:
+            with torch.inference_mode():
+                logits = forward(params, tokens, cfg)
+        finally:
+            FFN.route = real_route
         torch.cuda.synchronize()
         launches = {"decode_attention": DK.LAUNCHES["decode_attention"],
                     "flash_attention": FK.LAUNCHES["flash_attention"]}
     finally:
         torch.use_deterministic_algorithms(False)
 
-    generated = sum(r.max_new_tokens for r in serving_requests(cfg)[0])
+    generated = sum(r.max_new_tokens for r in requests)
     for label, _, rep, _ in runs:
-        log(f"serving {label}: {rep.tokens_prefilled} prefill tokens "
-            f"(baseline {rep.tokens_prefilled_baseline}), "
+        log(f"{tag} {cfg.name} {label}: {rep.tokens_prefilled} prefill "
+            f"tokens (baseline {rep.tokens_prefilled_baseline}), "
             f"{(rep.tokens_prefilled + generated) / rep.wall_seconds:.1f} "
             f"decode steps/s, {generated / rep.wall_seconds:.2f} generated "
             f"tokens/s, {rep.wall_seconds:.2f} s, SEs {rep.n_ses}, "
@@ -1673,90 +1732,266 @@ def serving_path(device, smi: str) -> dict:
     base = runs[0][1]
     for label, outs, _, _ in runs[1:]:
         if not all(np.array_equal(a, b) for a, b in zip(base, outs)):
-            raise AssertionError(f"{label} generated other tokens than "
-                                 f"the no-MQO run")
+            raise AssertionError(f"{tag} {cfg.name}: {label} generated "
+                                 f"other tokens than the no-MQO run")
     prefilled = [rep.tokens_prefilled for _, _, rep, _ in runs]
     if not prefilled[2] < prefilled[1] < prefilled[0]:
-        raise AssertionError(f"tokens prefilled not warm < cold < "
-                             f"baseline: {prefilled}")
+        raise AssertionError(f"{tag} {cfg.name}: tokens prefilled not "
+                             f"warm < cold < baseline: {prefilled}")
     steps = sum(p + generated for p in prefilled)
-    if launches["decode_attention"] != GRANITE_LAYERS * steps:
+    if launches["decode_attention"] != n_attn * steps:
         raise AssertionError(
-            f"decode_attention launched {launches['decode_attention']} "
-            f"times, not {GRANITE_LAYERS} x {steps} decode steps: some "
-            f"attention did not go through the kernel")
-    if launches["flash_attention"] != GRANITE_LAYERS:
-        raise AssertionError(f"flash_attention launched "
+            f"{tag} {cfg.name}: decode_attention launched "
+            f"{launches['decode_attention']} times, not {n_attn} attention "
+            f"layers x {steps} decode steps: some attention did not go "
+            f"through the kernel")
+    if launches["flash_attention"] != n_attn:
+        raise AssertionError(f"{tag} {cfg.name}: flash_attention launched "
                              f"{launches['flash_attention']} times in one "
-                             f"forward, not {GRANITE_LAYERS}")
-    want = cpu_decisions(cfg, serving_requests(cfg)[0], budget, block, k)
+                             f"forward, not {n_attn}")
+    want = cpu_decisions(cfg, make_requests(cfg)[0], SERVE_BUDGET, block,
+                         SERVE_K)
     for label, _, rep, resident in runs[1:]:
         got = dict(n_ses=rep.n_ses, selected=resident,
                    pool_used=rep.pool_used)
         if got != want or rep.n_selected != len(want["selected"]):
-            raise AssertionError(f"{label}: MQO decisions differ from the "
-                                 f"CPU's: {rep.n_ses} vs {want['n_ses']} "
-                                 f"SEs, {rep.pool_used} vs "
+            raise AssertionError(f"{tag} {cfg.name} {label}: MQO decisions "
+                                 f"differ from the CPU's: {rep.n_ses} vs "
+                                 f"{want['n_ses']} SEs, {rep.pool_used} vs "
                                  f"{want['pool_used']} B")
-
-    # where a decode step's time goes: 16 greedy steps on a copy of the
-    # resident 256-token prefix state, under the profiler
-    resident = next(eng.pool.get(psi)[0] for psi in eng.pool.keys()
-                    if eng.pool.get(psi)[1] == 256)
-    first = tokens[:, -1:]
-    n_prof = 16
-    prof = device_time(lambda: _generate_scan(
-        params, _clone_state(resident), first, 256, cfg, n_prof), device,
-        mark=DECODE_MARK)
-    if prof["busy"] is None:
-        log("serving decode, profiled: device time not measured (the "
-            "profiler saw no device activity)")
-    else:
-        at, an = prof["filter"]
-        top = "; ".join(f"{k[:40]} {t * 1e3:.2f} ms x{n}"
-                        for k, t, n in prof["top"])
-        log(f"serving decode, profiled, {n_prof} steps at 257-272 live "
-            f"keys: wall {prof['wall'] / n_prof * 1e3:.2f} ms a step, "
-            f"device busy {prof['busy'] / n_prof * 1e3:.2f} ms a step "
-            f"(idle share {1 - prof['busy'] / prof['wall']:.3f}), "
-            f"{prof['n_events'] / n_prof:.0f} device events a step; "
-            f"{DECODE_MARK} {at * 1e3:.3f} ms x{an} "
-            f"({at / prof['busy']:.3f} of busy); top device events: "
-            f"{top} [{smi}]")
-
-    # the parallel forward with the flash kernel against the plain
-    # attention on the card: same weights, same tokens
-    real = A.attention
-    A.attention = lambda q, k, v, causal, window, scale, impl: mha_ref(
-        q, k, v, causal=causal, window=window, sm_scale=scale)
-    try:
-        with torch.inference_mode():
-            plain = forward(params, tokens, cfg)
-    finally:
-        A.attention = real
-    if logits.shape != (1, 256, cfg.vocab_size) \
+    t = tokens.shape[1]
+    if logits.shape != (1, t, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()):
-        raise AssertionError("forward logits not finite or misshapen")
-    err = float((logits.float() - plain.float()).abs().max())
-    top = float(plain.float().abs().max())
-    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"serving forward: 256-token template, flash_attention launched "
-        f"{launches['flash_attention']} times; logits vs plain attention "
-        f"max |diff| {err:.4g} of max |logit| {top:.4g} (limit "
-        f"{FORWARD_RTOL}), argmax agrees at {agree:.4f} of positions")
-    if not err <= FORWARD_RTOL * top:
-        raise AssertionError("forward with the flash kernel differs from "
-                             "the plain attention")
-    log(f"serving: generations bitwise equal across no-MQO / MQO cold / "
-        f"MQO warm; MQO decisions equal the CPU's ({want['n_ses']} SEs, "
-        f"{len(want['selected'])} selected, {want['pool_used']} B); "
+        raise AssertionError(f"{tag} {cfg.name}: forward logits not "
+                             f"finite or misshapen")
+
+    # one decode step on a copy of the longest resident prefix state:
+    # finite logits; then, with ``profile``, where a step's time goes
+    resident, n_res = max((eng.pool.get(psi) for psi in eng.pool.keys()),
+                          key=lambda state: state[1])
+    first = tokens[:, n_res - 1:n_res]
+    with torch.inference_mode():
+        step_logits, _ = decode_step(params, _clone_state(resident), first,
+                                     n_res, cfg)
+    if not bool(torch.isfinite(step_logits).all()):
+        raise AssertionError(f"{tag} {cfg.name}: decode logits not finite")
+    if profile:
+        n_prof = 16
+        prof = device_time(lambda: _generate_scan(
+            params, _clone_state(resident), first, n_res, cfg, n_prof),
+            device, mark=DECODE_MARK)
+        if prof["busy"] is None:
+            log(f"{tag} {cfg.name} decode, profiled: device time not "
+                f"measured (the profiler saw no device activity)")
+        else:
+            at, an = prof["filter"]
+            top = "; ".join(f"{key[:40]} {dt * 1e3:.2f} ms x{n}"
+                            for key, dt, n in prof["top"])
+            log(f"{tag} {cfg.name} decode, profiled, {n_prof} steps after "
+                f"a {n_res}-token prefix: wall "
+                f"{prof['wall'] / n_prof * 1e3:.2f} ms a step, device busy "
+                f"{prof['busy'] / n_prof * 1e3:.2f} ms a step (idle share "
+                f"{1 - prof['busy'] / prof['wall']:.3f}), "
+                f"{prof['n_events'] / n_prof:.0f} device events a step; "
+                f"{DECODE_MARK} {at * 1e3:.3f} ms x{an} "
+                f"({at / prof['busy']:.3f} of busy); top device events: "
+                f"{top} [{smi}]")
+
+    if n_attn:
+        # A bf16 ulp of an attention output can flip a token's top-k
+        # experts (and so which tokens a full expert drops), which moves
+        # its logits by their whole size: the plain forward replays the
+        # kernel forward's routes, so that the comparison sees the
+        # attention alone, and counts the routes it would have chosen
+        # otherwise.
+        real, replay, flips = A.attention, iter(routes), [0, 0]
+
+        def replayed(c, lg):
+            mine, kept = real_route(c, lg), next(replay)
+            flips[0] += int((mine.top_idx != kept.top_idx).any(-1).sum())
+            flips[1] += mine.top_idx.shape[0]
+            return kept
+
+        A.attention = lambda q, k, v, causal, window, scale, impl: mha_ref(
+            q, k, v, causal=causal, window=window, sm_scale=scale)
+        FFN.route = replayed
+        try:
+            with torch.inference_mode():
+                plain = forward(params, tokens, cfg)
+        finally:
+            A.attention, FFN.route = real, real_route
+        err = float((logits.float() - plain.float()).abs().max())
+        top = float(plain.float().abs().max())
+        agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        moe = (f"; MoE routes replayed from the kernel forward ({flips[0]} "
+               f"of {flips[1]} token routes would differ)" if routes
+               else "")
+        log(f"{tag} {cfg.name} forward: {t}-token template, flash_attention "
+            f"launched {launches['flash_attention']} times; logits vs plain "
+            f"attention max |diff| {err:.4g} of max |logit| {top:.4g} "
+            f"(limit {FORWARD_RTOL}), argmax agrees at {agree:.4f} of "
+            f"positions{moe}")
+        if not err <= FORWARD_RTOL * top:
+            raise AssertionError(f"{tag} {cfg.name}: forward with the "
+                                 f"flash kernel differs from the plain "
+                                 f"attention")
+    log(f"{tag} {cfg.name}: generations bitwise equal across no-MQO / MQO "
+        f"cold / MQO warm; MQO decisions equal the CPU's ({want['n_ses']} "
+        f"SEs, {len(want['selected'])} selected, {want['pool_used']} B); "
         f"decode_attention launched {launches['decode_attention']} times "
-        f"= {GRANITE_LAYERS} x {steps} decode steps, no attention outside "
-        f"the kernels")
-    del eng, params
+        f"= {n_attn} x {steps} decode steps"
+        + ("" if "mla" in cfg.pattern else
+           ", no attention outside the kernels"))
+    del eng, params, resident
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefilled=prefilled, forward_err=err,
-                forward_top=top)
+    return launches
+
+
+def serving_path(device, smi: str) -> dict:
+    """Phase S2: granite-8b, all 36 layers, through :func:`serve_model`
+    with the profiled window; returns the launch counts."""
+    from repro_torch.configs import get_config
+
+    cfg = replace(get_config("granite-8b"), attn_impl="pallas")
+    if cfg.n_layers != GRANITE_LAYERS:
+        raise AssertionError("granite-8b is not the 36-layer config")
+    return serve_model("serving", cfg, serving_requests, device, smi,
+                       cut="all layers", block=64, max_len=1024,
+                       profile=True)
+
+
+# ---------------------------------------------------------------------------
+# phase S3: the Mamba, RG-LRU, MoE and MLA families
+# ---------------------------------------------------------------------------
+# (config, layers served; None = all of them).  Depth is the only cut,
+# and only for the two MoE models, whose whole stacks do not fit one
+# card (215.5 GB and 453.5 GB of bf16 parameters): llama4-scout keeps 6
+# of its 48 layers, deepseek-v2 4 of its 60 (its dense first layer and 3
+# MoE layers).  Widths are the published ones.
+FAMILIES = (("falcon-mamba-7b", None), ("recurrentgemma-9b", None),
+            ("llama4-scout-17b-a16e", 6), ("deepseek-v2-236b", 4))
+PROFILED_FAMILIES = ("falcon-mamba-7b", "llama4-scout-17b-a16e")
+# The -smoke configs in f32, on the card against the CPU from the same
+# parameters: cuBLAS and the CPU's BLAS, and the kernels and the plain
+# attention, sum in other orders; 1e-3 is the tolerance the CPU tests
+# hold the port to against the JAX package.
+FAMILY_ATOL = 1e-3
+FAMILY_DECODE_STEPS = 40
+
+
+def family_requests(cfg):
+    """4 requests over one template of 128 seeded random tokens; request
+    i appends a tail of 4 + i tokens and asks for 8 new tokens.  Returns
+    (requests, [template])."""
+    import numpy as np
+
+    from repro_torch.serving import GenerationRequest
+
+    rng = np.random.default_rng(SERVE_SEED)
+    template = rng.integers(0, cfg.vocab_size, 128)
+    tails = [rng.integers(0, cfg.vocab_size, 4 + i) for i in range(4)]
+    return [GenerationRequest(i, np.concatenate(
+        [template, tails[i]]).astype(np.int32), 8) for i in range(4)], \
+        [template]
+
+
+def family_parity(device) -> dict:
+    """Phase S3a: each family's -smoke config (f32) on the card against
+    the same port on the CPU, from the same parameters: the forward
+    logits at the config's capacity factor, and, dropless (a token's
+    route must not depend on the other token of its decode batch), the
+    forward and FAMILY_DECODE_STEPS decode steps of a batch of 2, card
+    against CPU and the card's decode against its forward.  Returns the
+    worst error of each comparison per config; raises above
+    FAMILY_ATOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models.decoder import init_cache
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name, _ in FAMILIES:
+        base = replace(get_config(name + "-smoke"), attn_impl="pallas")
+        dropless = replace(base, capacity_factor=float(max(
+            base.n_experts, 1)))
+        p_cpu = init_params(base, SERVE_SEED, cpu)
+        p_card = init_params(base, SERVE_SEED, cpu).to(device)
+        toks = torch.from_numpy(np.random.default_rng(SERVE_SEED).integers(
+            0, base.vocab_size, (2, FAMILY_DECODE_STEPS)))
+        errs = {}
+        with torch.inference_mode():
+            for label, cfg in (("forward", base),
+                               ("forward dropless", dropless)):
+                want = forward(p_cpu, toks, cfg)
+                got = forward(p_card, toks.to(device), cfg)
+                errs[label] = float((got.cpu() - want).abs().max())
+            full = got
+            c_cpu = init_cache(dropless, 2, FAMILY_DECODE_STEPS, device=cpu)
+            c_card = init_cache(dropless, 2, FAMILY_DECODE_STEPS,
+                                device=device)
+            dec, vs_fwd = 0.0, 0.0
+            for t in range(FAMILY_DECODE_STEPS):
+                a, c_cpu = decode_step(p_cpu, c_cpu, toks[:, t:t + 1], t,
+                                       dropless)
+                b, c_card = decode_step(p_card, c_card,
+                                        toks[:, t:t + 1].to(device), t,
+                                        dropless)
+                dec = max(dec, float((b.cpu() - a).abs().max()))
+                vs_fwd = max(vs_fwd, float((b - full[:, t]).abs().max()))
+        torch.cuda.synchronize()
+        errs["decode"], errs["decode vs forward"] = dec, vs_fwd
+        if not all(np.isfinite(e) and e <= FAMILY_ATOL
+                   for e in errs.values()):
+            raise AssertionError(f"S3a {name}-smoke: card vs CPU {errs} "
+                                 f"(limit {FAMILY_ATOL})")
+        out[name] = errs
+        del p_cpu, p_card
+    return out
+
+
+def serve_family(name: str, layers, device, smi: str) -> dict:
+    """Phase S3b for one family at full width, bf16, cut to ``layers``
+    layers (None: all), through :func:`serve_model`; returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_specs
+    from repro_torch.models.common import map_specs
+
+    full = replace(get_config(name), attn_impl="pallas")
+    cfg = full if layers is None else replace(full, n_layers=layers)
+    whole = []
+    map_specs(model_specs(full), lambda spec: whole.append(
+        math.prod(spec.shape)))
+    cut = ("all layers" if layers is None else
+           f"{layers} of {full.n_layers} layers, depth cut to fit one card; "
+           f"the whole model holds {sum(whole) / 1e9:.3f} B parameters, "
+           f"{2 * sum(whole) / 1e9:.1f} GB in bf16")
+    return serve_model("S3b", cfg, family_requests, device, smi, cut=cut,
+                       block=32, max_len=256,
+                       profile=name in PROFILED_FAMILIES)
+
+
+def family_phases(cuda, smi: str) -> dict:
+    """Phases S3a and S3b; returns the attention kernels' launches of
+    S3b, summed over the families."""
+    t0 = time.perf_counter()
+    for name, errs in family_parity(cuda).items():
+        log(f"S3a {name}-smoke, f32, card vs CPU: " + ", ".join(
+            f"{k} max |diff| {v:.3g}" for k, v in errs.items())
+            + f" (limit {FAMILY_ATOL})")
+    log(f"S3a: {time.perf_counter() - t0:.1f} s")
+    total = {"decode_attention": 0, "flash_attention": 0}
+    for name, layers in FAMILIES:
+        t1 = time.perf_counter()
+        launches = serve_family(name, layers, cuda, smi)
+        for key, n in launches.items():
+            total[key] += n
+        log(f"S3b {name}: {time.perf_counter() - t1:.1f} s")
+    log(f"S3: {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def relational_phases(cuda, smi: str, main_path_too: bool = True,
@@ -1853,10 +2088,11 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
     return kernels
 
 
-def attention_phases(cuda, smi: str, serve: bool) -> list:
-    """Phases S1 (and S2 when ``serve``): the attention kernels against
-    their plain versions, their times, and the serving path; returns the
-    kernels' JSON entries."""
+def attention_phases(cuda, smi: str, serve: bool, families: bool) -> list:
+    """Phases S1, S2 when ``serve`` and S3 when ``families``: the
+    attention kernels against their plain versions, their times, and
+    the serving paths; returns the kernels' JSON entries, whose
+    ``launches`` sum the launches of the serving paths that ran."""
     sweep = attention_sweep(cuda)
     log(f"attention kernels vs plain versions: decode_attention "
         f"{sweep['cases']['decode_attention']} cases, max |err| "
@@ -1875,8 +2111,12 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
             f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
             f"(device time {fmt_ms(t['library_device_ms'])}; in a CUDA "
             f"graph {t['library_graph_ms']:.4f} ms), bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) [{smi}]")
-    launches = serving_path(cuda, smi)["launches"] if serve else {}
+            f"{t['bound_ms']:.3g} ms ({t['bound_by']}) [{smi}]")
+    by_path = {}
+    if serve:
+        by_path["serving"] = serving_path(cuda, smi)
+    if families:
+        by_path["families"] = family_phases(cuda, smi)
     kernels = []
     for name, key, src, line in (
             ("decode_attention", "decode_attention/kv128", DECODE_CU,
@@ -1886,7 +2126,9 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
         t = timings[key]
         entry = dict(
             name=name, route="cuda", source=src, replaces=line,
-            launches=launches.get(name, 0), path="serving",
+            launches=sum(c.get(name, 0) for c in by_path.values()),
+            path="+".join(by_path),
+            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=max(t["max_abs_err"],
                             sweep["worst"][name]),
             ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
@@ -1895,11 +2137,10 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
             library_device_ms=t["library_device_ms"],
             graph_ms=t["graph_ms"], library_graph_ms=t["library_graph_ms"],
             shape=t["shape"])
-        if name == "decode_attention":
-            for sub in ("kv1024", "kv272/b8"):
-                entry[sub.replace("/", "_")] = {
-                    k: v for k, v in timings[f"decode_attention/{sub}"]
-                    .items() if k != "shape"}
+        for sub in timings:
+            if sub.startswith(name + "/") and sub != key:
+                entry[sub[len(name) + 1:].replace("/", "_")
+                      .replace("-", "_")] = timings[sub]
         kernels.append(entry)
     return kernels
 
@@ -1907,7 +2148,7 @@ def attention_phases(cuda, smi: str, serve: bool) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
-                                       "serving", "timings"),
+                                       "serving", "families", "timings"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -1958,9 +2199,10 @@ def main(argv=None) -> int:
             async_too=args.only != "relational",
             checks=args.only != "timings")
         torch.cuda.empty_cache()
-    if args.only in (None, "attention", "serving"):
-        kernels += attention_phases(cuda, smi,
-                                    serve=args.only != "attention")
+    if args.only in (None, "attention", "serving", "families"):
+        kernels += attention_phases(
+            cuda, smi, serve=args.only in (None, "serving"),
+            families=args.only in (None, "families"))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

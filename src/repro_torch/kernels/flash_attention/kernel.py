@@ -13,6 +13,7 @@ training path.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Optional
 
@@ -82,7 +83,14 @@ def _tma_ready(x: torch.Tensor) -> bool:
 
 
 def _strides(*xs) -> ctypes.Array:
-    vals = [st for x in xs for st in x.stride()[:3]]
+    """The (batch, head, row) element strides of each tensor.  A size-1
+    dim's stride never enters an address, and torch calls a tensor
+    contiguous whatever stride it carries there (a single KV head split
+    off a projection keeps the row stride), so such a dim reports the
+    stride a dense layout gives it, which the f32 kernel's check
+    expects."""
+    vals = [x.stride(i) if x.shape[i] != 1 else math.prod(x.shape[i + 1:])
+            for x in xs for i in range(3)]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 

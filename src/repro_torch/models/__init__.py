@@ -1,5 +1,4 @@
-# LM substrate: pattern-based decoder stacks.  Ported: dense GQA
-# families (attn / local blocks, dense FFN); MoE, MLA, SSM and RG-LRU
-# blocks raise NotImplementedError (ROADMAP A8).
+# LM substrate: pattern-based decoder stacks over every block kind
+# (GQA attn / local, MLA, Mamba, RG-LRU) and both FFN kinds (dense, MoE).
 from .config import ArchConfig, smoke_variant
 from .model import decode_step, forward, init_params, loss_fn, model_specs

@@ -6,8 +6,10 @@ axes, init rule).  :func:`materialize_params` turns a spec tree into a
 tensor by tensor, directly in its storage dtype on its device: matrices
 and embeddings in the config's dtype (the JAX package keeps f32 masters
 and casts at every use; rounding once at init gives the same values and
-keeps a bf16 model from being re-cast on every step), RMSNorm weights
-in f32, since the norm reads them in f32.
+keeps a bf16 model from being re-cast on every step), ``ones``-init
+leaves in f32: RMSNorm weights, which the norm reads in f32, and Mamba's
+``A_log`` / ``D`` and RG-LRU's ``lam``, which their blocks cast where the
+JAX package casts them.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ SpecTree = Dict
 
 
 def storage_dtype(spec: ParamSpec, dtype: torch.dtype) -> torch.dtype:
-    """RMSNorm weights (``ones`` init) stay f32; the rest use ``dtype``."""
+    """``ones``-init leaves (RMSNorm weights, ``A_log``, ``D``, ``lam``)
+    stay f32; the rest use ``dtype``."""
     return torch.float32 if spec.init == "ones" else dtype
 
 

@@ -4,8 +4,8 @@ A model is ``first_k_dense`` prefix layers + ``full_repeats`` copies of
 the layer ``pattern`` + remainder layers.  The JAX package scans a
 stacked copy of the pattern's parameters; here ``params["scan"]`` is a
 list (an ``nn.ModuleList``) of per-repeat parameter trees and the
-decoder loops over it.  Block kinds ``attn`` and ``local`` are ported;
-``mla``, ``mamba`` and ``rglru`` raise NotImplementedError (ROADMAP A8).
+decoder loops over it.  Every block kind of ``config.BLOCK_KINDS`` runs:
+``attn`` / ``local`` (GQA), ``mla``, ``mamba`` (no MLP) and ``rglru``.
 
 Two entry points per stack: :func:`decoder_forward` (parallel over a
 token block) and :func:`decoder_decode_step` (one token, caches updated
@@ -20,28 +20,32 @@ import torch
 from ..device import DeviceLike, resolve_device
 from . import attention as A
 from . import ffn as F
+from . import rglru as R
+from . import ssm as S
 from .common import rmsnorm, rmsnorm_spec
 from .config import ArchConfig
-
-_PORTED_KINDS = ("attn", "local")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in _PORTED_KINDS:
-        if kind in ("mla", "mamba", "rglru"):
-            raise NotImplementedError(
-                f"{kind} blocks are not ported yet (ROADMAP A8)")
-        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # per-block specs
 # ---------------------------------------------------------------------------
 def block_specs(cfg: ArchConfig, kind: str, ffn_kind: str) -> Dict:
-    _check_kind(kind)
-    return {"norm1": rmsnorm_spec(cfg.d_model), "mix": A.gqa_specs(cfg),
-            "norm2": rmsnorm_spec(cfg.d_model),
-            "ffn": F.ffn_specs(cfg, ffn_kind)}
+    d = cfg.d_model
+    specs: Dict[str, Any] = {"norm1": rmsnorm_spec(d)}
+    if kind in ("attn", "local"):
+        specs["mix"] = A.gqa_specs(cfg)
+    elif kind == "mla":
+        specs["mix"] = A.mla_specs(cfg)
+    elif kind == "mamba":
+        specs["mix"] = S.mamba_specs(cfg)
+        return specs                       # a mamba block has no MLP
+    elif kind == "rglru":
+        specs["mix"] = R.rglru_specs(cfg)
+    else:
+        raise ValueError(kind)
+    specs["norm2"] = rmsnorm_spec(d)
+    specs["ffn"] = F.ffn_specs(cfg, ffn_kind)
+    return specs
 
 
 def decoder_specs(cfg: ArchConfig) -> Dict:
@@ -87,8 +91,16 @@ def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   ffn_kind: str, positions: torch.Tensor, dtype
                   ) -> torch.Tensor:
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    h = A.gqa_forward(p["mix"], h, cfg, window=_window(cfg, kind),
-                      positions=positions, dtype=dtype)
+    if kind in ("attn", "local"):
+        h = A.gqa_forward(p["mix"], h, cfg, window=_window(cfg, kind),
+                          positions=positions, dtype=dtype)
+    elif kind == "mla":
+        h = A.mla_forward(p["mix"], h, cfg, positions=positions,
+                          dtype=dtype)
+    elif kind == "mamba":
+        return x + S.mamba_forward(p["mix"], h, cfg, dtype)
+    elif kind == "rglru":
+        h = R.rglru_forward(p["mix"], h, cfg, dtype)
     x = x + h
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype)
@@ -106,10 +118,18 @@ def decoder_forward(params, x: torch.Tensor, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 def _kind_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                 dtype, device):
-    _check_kind(kind)
-    # local layers only ever need a window-sized cache
-    n = max_len if kind == "attn" else min(max_len, cfg.window or max_len)
-    return A.gqa_init_cache(cfg, batch, n, dtype, device)
+    if kind in ("attn", "local"):
+        # local layers only ever need a window-sized cache
+        n = max_len if kind == "attn" else min(max_len,
+                                               cfg.window or max_len)
+        return A.gqa_init_cache(cfg, batch, n, dtype, device)
+    if kind == "mla":
+        return A.mla_init_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return S.mamba_init_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return R.rglru_init_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
@@ -149,7 +169,15 @@ def _caches(cache: Dict, cfg: ArchConfig):
 def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
                   ffn_kind: str, dtype):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if kind == "local" and cfg.window is not None:
+    if kind == "mla":
+        h, cache = A.mla_decode(p["mix"], h, cache, cur_len, cfg,
+                                dtype=dtype)
+    elif kind == "mamba":
+        h, cache = S.mamba_decode(p["mix"], h, cache, cfg, dtype)
+        return x + h, cache
+    elif kind == "rglru":
+        h, cache = R.rglru_decode(p["mix"], h, cache, cfg, dtype)
+    elif kind == "local" and cfg.window is not None:
         # the local cache is a rolling window: once full, older entries
         # roll off and the new token takes the last slot, while RoPE
         # keeps the absolute position so relative phases stay correct

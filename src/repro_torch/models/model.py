@@ -3,7 +3,7 @@
 Modality frontends (VLM patches / audio frames) are stubs as in the JAX
 package: precomputed (B, n_prefix, d_model) embeddings arrive as an
 input.  The dry-run stand-ins (``ShapeCell`` / ``input_specs``) wait
-for the launch tools (ROADMAP A10).
+for the launch tools (ROADMAP A6).
 """
 from __future__ import annotations
 

@@ -254,3 +254,21 @@ def test_cluster_merge_matches_decode_ref_and_ignores_the_batch(dtype,
                                        v[row:row + 1], lens[row:row + 1],
                                        window=window)
         assert torch.equal(alone, got[row:row + 1])
+
+
+def test_flash_strides_of_size_one_dims_are_dense():
+    """The f32 kernel takes dense (B, H, rows, D) blocks and checks the
+    strides it is given.  A single KV head split off a projection (the
+    shape recurrentgemma's local layers give) is contiguous to torch with
+    the row stride on its head dim: the wrapper reports the dense stride
+    there, and what a strided multi-head view reports is its own."""
+    from repro_torch.kernels.flash_attention.kernel import _strides
+
+    b, t, d = 2, 40, 32
+    k = torch.zeros(b, t, d).reshape(b, t, 1, d).transpose(1, 2)
+    assert k.is_contiguous() and k.stride(1) == d
+    assert list(_strides(k)) == [t * d, t * d, d]
+    q = torch.zeros(1, t, 4 * d).reshape(1, t, 4, d).transpose(1, 2)
+    assert list(_strides(q)) == [4 * t * d, d, 4 * d]
+    dense = q.contiguous()
+    assert list(_strides(dense)) == list(dense.stride()[:3])

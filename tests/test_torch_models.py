@@ -175,11 +175,3 @@ def test_granite_spec_count_is_its_parameter_count():
               lambda s: sizes.append(int(np.prod(s.shape))))
     norms = (2 * cfg.n_layers + 1) * cfg.d_model
     assert sum(sizes) == cfg.param_count()[0] + norms
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b",
-                                  "recurrentgemma-9b",
-                                  "llama4-scout-17b-a16e"])
-def test_unported_blocks_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.init_params(get_config(arch + "-smoke"), 0, CPU)
