@@ -38,12 +38,25 @@ process per source, all at once) and drives both of the port's paths:
   ``-smoke`` configs on the card against the CPU (S3a), then serves
   falcon-mamba-7b, recurrentgemma-9b, llama4-scout (6 of 48 layers) and
   deepseek-v2 (4 of 60) at full width the same three ways (S3b), with
-  S2's checks per family.
+  S2's checks per family;
+* training (T0-T2): holds the differentiable ``flash_attention`` (the
+  kernel's forward, a recompute backward through the plain version)
+  against autograd through the plain version, gradients bitwise and the
+  bf16 forward per row, up to T1's shape (T0); trains granite-8b at
+  full width, 8 of its 36 layers, with f32 masters, AdamW and block
+  remat for 8 steps at seq_len 4096 through ``train(...)``, checking
+  every leaf's gradient, the kernel's launches and step 1 against the
+  plain attention (a control without the causal mask must fail that
+  check), and printing step seconds,
+  tokens/s, the model FLOP/s share, peak memory and one profiled step
+  (T1); and runs the JAX package's fault-tolerance tests on the card:
+  a preempted, resumed run equals an uninterrupted one bitwise (T2).
 
-``--only relational|async|attention|serving|families|timings`` runs one
-group (for bring-up: ``relational`` leaves out A0 and A, ``async`` runs
-the CSV decoder, A0 and A, ``serving`` and ``families`` run S1 first,
-``timings`` only times the filter kernel and the decoder); with no
+``--only relational|async|attention|serving|families|training|timings``
+runs one group (for bring-up: ``relational`` leaves out A0 and A,
+``async`` runs the CSV decoder, A0 and A, ``serving``, ``families`` and
+``training`` run S1 first, ``timings`` only times the filter kernel and
+the decoder); with no
 argument every phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
@@ -55,6 +68,7 @@ any result.  The script imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -871,7 +885,7 @@ def device_time(fn, device, mark: str = "filter_scan_kernel") -> dict:
     filt = [(t, n) for k, t, n in dev if mark in k]
     filt = (sum(t for t, _ in filt), sum(n for _, n in filt))
     return dict(out=out, wall=wall, busy=busy, top=dev[:6], filter=filt,
-                n_events=sum(n for _, _, n in dev))
+                n_events=sum(n for _, _, n in dev), events=dev)
 
 
 def main_path(K, cuda, scale_rows: int = SF1_STORE_SALES_ROWS) -> dict:
@@ -1530,7 +1544,8 @@ def attention_timings(device) -> dict:
     serving path's shapes (granite-8b, bf16): decode over a 1024-slot
     cache at 128 and 1024 live keys (batch 1, as the engine decodes) and
     at S2's 8 requests as one batch at 272 live keys, forward over a
-    256-token prompt; and at S3's shapes (``s3/<model>``): decode at 144
+    256-token prompt and over T1's training batch (2 x 4096 tokens); and
+    at S3's shapes (``s3/<model>``): decode at 144
     live keys of a 256-slot cache and the forward over the 128-token
     template, for recurrentgemma-9b's local layers (16 query heads of
     256 over one KV head, window 2048) and llama4-scout's (40 over 8, head
@@ -1568,10 +1583,10 @@ def attention_timings(device) -> dict:
                 f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) bf16, "
                 f"kv_len {live}", (DECODE_MARK,),
                 lambda: DK.LAUNCHES["decode_attention"])
-    def flash(key, hq, hkv, d, t, window=None):
-        q = _randn((1, hq, t, d), bf16, device, gen)
-        k = _randn((1, hkv, t, d), bf16, device, gen)
-        v = _randn((1, hkv, t, d), bf16, device, gen)
+    def flash(key, hq, hkv, d, t, window=None, b=1):
+        q = _randn((b, hq, t, d), bf16, device, gen)
+        k = _randn((b, hkv, t, d), bf16, device, gen)
+        v = _randn((b, hkv, t, d), bf16, device, gen)
         out[key] = _timing(
             lambda: FK.flash_attention(q, k, v, causal=True, window=window),
             lambda: mha_ref(q, k, v, causal=True, window=window),
@@ -1579,12 +1594,14 @@ def attention_timings(device) -> dict:
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True),
             (2 * q.numel() + 2 * k.numel()) * 2,
-            4 * hq * d * (t * (t + 1) // 2),
-            f"q (1, {hq}, {t}, {d}), k/v (1, {hkv}, {t}, {d}) bf16, causal"
+            4 * b * hq * d * (t * (t + 1) // 2),
+            f"q ({b}, {hq}, {t}, {d}), k/v ({b}, {hkv}, {t}, {d}) bf16, causal"
             + ("" if window is None else f", window {window}"),
             (FLASH_MARK,), lambda: FK.LAUNCHES["flash_attention"])
 
     flash("flash_attention", hq, hkv, d, 256)
+    # T1's shape: the forward of a granite-8b training step
+    flash("flash_attention/train", hq, hkv, d, TRAIN_SEQ_LEN, b=TRAIN_BATCH)
     for model, _ in FAMILIES:
         cfg = get_config(model)
         if not {"attn", "local"} & set(cfg.pattern):
@@ -1843,6 +1860,9 @@ def serve_model(tag: str, cfg, make_requests, device, smi: str, *,
         + ("" if "mla" in cfg.pattern else
            ", no attention outside the kernels"))
     del eng, params, resident
+    # the engine's objects refer to each other: collect them now, so that
+    # the card's memory is free for the next phase
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1994,6 +2014,490 @@ def family_phases(cuda, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases T0-T2: training
+# ---------------------------------------------------------------------------
+# T0's sweep: (query heads, KV heads, head dim) for GQA groups 1, 4, 5 and
+# 16 at head dims 128 and 256, each over T = S = 1024 causal, gemma3's
+# window of 512, and for the group-16 head-dim-256 shape (recurrentgemma's
+# local layers) its window of 2048 over T = S = 2304.
+TRAIN_ATTN_HEADS = ((8, 8, 128), (32, 8, 128), (40, 8, 128), (8, 2, 256),
+                    (16, 1, 256))
+TRAIN_LAYERS = 8                      # of granite-8b's 36
+TRAIN_SEQ_LEN, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 8
+# T0's bf16 forwards per row: max |kernel - plain| over a row's D outputs
+# over the row's largest |plain|.  Both round f32 sums of the same
+# products once to bf16, so they part by at most one ulp of an element,
+# and a bf16 ulp is at most 2^-7 of the element; the limit is two ulps
+# of the row's largest.  An absolute limit cannot see a lost key tile at
+# T1's shape, where a row over 4096 keys is about 0.026 in size (ATTN_ATOL
+# is 3e-2); per row, the control below (one 64-key tile, the kernel's,
+# left out of the plain version) must fail this limit.
+ROW_RTOL_BF16 = 2.0 ** -6
+CONTROL_TILE = (2048, 2048 + 64)      # the key tile the control leaves out
+# T1's step 1 with the flash kernel against the same step with the plain
+# attention, both bf16 on the card.  The two attentions' bf16 outputs
+# part by about one ulp per element, and 8 layers carry that on; on an
+# H100 the loss has read 1.6e-5 apart relative, the gradient norm 9.5e-5
+# and the worst leaf's gradient 0.025 (L2, relative; PERF.md), and the
+# limits are about ten times those.  At random init the loss sits near
+# ln(vocab) whatever the attention does, so the limits are held to a
+# control: the same step with the kernel's forward run without the
+# causal mask (the backward still the causal recompute) must fail them.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_RTOL = 2e-4, 1e-3, 0.25
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device kernel of a train step, by its name:
+    the flash kernel, f32 and bf16 matrix products (cuBLAS / CUTLASS),
+    elementwise kernels, reductions, copies, the rest."""
+    low = name.lower()
+    if FLASH_MARK in name:
+        return "flash_attention"
+    if any(m in low for m in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "f32 GEMM" if ("f32f32" in low or "sgemm" in low) \
+            else "bf16 GEMM"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduction"
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copy"
+    return "other"
+
+
+def row_error(got, want) -> float:
+    """The largest over rows of max |got - want| over the row's largest
+    |want| (the last dim is a row)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs().amax(-1)
+                  / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def plain_without_keys(q, k, v, lo: int, hi: int):
+    """Causal attention through the plain formula with keys [lo, hi) left
+    out of every row: what a forward that skipped that key tile gives.
+    T0's control."""
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    k, v = (x.repeat_interleave(group, 1).float() for x in (k, v))
+    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k) \
+        / q.shape[-1] ** 0.5
+    i = torch.arange(q.shape[2], device=q.device)
+    keep = (i[:, None] >= i[None, :]) & ((i < lo) | (i >= hi))[None, :]
+    probs = torch.softmax(logits.masked_fill(~keep, float("-inf")), -1)
+    return torch.einsum("bhts,bhsd->bhtd", probs, v).to(q.dtype)
+
+
+def train_attention_grads(device) -> dict:
+    """Phase T0: ``ops.attention`` (the autograd Function whose forward
+    launches ``flash_attention`` and whose backward recomputes through
+    ``mha_ref``) against autograd through ``mha_ref`` on the same
+    inputs, bf16 and f32, over :data:`TRAIN_ATTN_HEADS` and their masks
+    and at T1's shape: the forward within ATTN_ATOL, in bf16 also within
+    ROW_RTOL_BF16 of each row's scale, dq, dk, dv bitwise equal.  At
+    T1's shape in bf16 the control, the plain version without one key
+    tile, must fail the row limit.  Returns the case count, the worst
+    forward errors and the control's; raises on a failed case."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    worst, worst_row, control = {}, 0.0, None
+    cases = 0
+    shapes = [(1, hq, hkv, d, t, window) for hq, hkv, d in TRAIN_ATTN_HEADS
+              for t, window in ((1024, None), (1024, 512))
+              + (((2304, 2048),) if hkv == 1 else ())]
+    shapes.append((TRAIN_BATCH, 32, 8, 128, TRAIN_SEQ_LEN, None))
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hq, hkv, d, t, window in shapes:
+            q = _randn((b, hq, t, d), dtype, device, gen)
+            k, v = (_randn((b, hkv, t, d), dtype, device, gen)
+                    for _ in range(2))
+            g = _randn((b, hq, t, d), dtype, device, gen)
+            grads, outs = [], []
+            before = FK.LAUNCHES["flash_attention"]
+            for fn in (lambda *x: attention(*x, True, window, None,
+                                            "pallas"),
+                       lambda *x: mha_ref(*x, causal=True,
+                                          window=window)):
+                xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out = fn(*xs)
+                out.backward(g)
+                outs.append(out.detach())
+                grads.append([x.grad for x in xs])
+            torch.cuda.synchronize()
+            what = (f"{dtype}, q ({b}, {hq}, {t}, {d}), k/v ({b}, "
+                    f"{hkv}, {t}, {d}), window {window}")
+            if FK.LAUNCHES["flash_attention"] - before != 1:
+                raise AssertionError(f"T0 {what}: the forward did not "
+                                     f"launch flash_attention once")
+            err = float((outs[0].float() - outs[1].float()).abs().max())
+            if not err <= ATTN_ATOL[str(dtype)]:
+                raise AssertionError(f"T0 {what}: forward error {err}")
+            if dtype == torch.bfloat16:
+                row = row_error(outs[0], outs[1])
+                if not row <= ROW_RTOL_BF16:
+                    raise AssertionError(f"T0 {what}: forward error "
+                                         f"{row} of a row's scale")
+                worst_row = max(worst_row, row)
+                if t == TRAIN_SEQ_LEN:
+                    wrong = plain_without_keys(q, k, v, *CONTROL_TILE)
+                    control = (row_error(wrong, outs[1]), float(
+                        (wrong.float() - outs[1].float()).abs().max()))
+                    del wrong
+                    if control[0] <= ROW_RTOL_BF16:
+                        raise AssertionError(
+                            f"T0 {what}: the control without keys "
+                            f"{CONTROL_TILE} passes the row limit "
+                            f"({control[0]})")
+            for name, x, y in zip("qkv", *grads):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"T0 {what}: d{name} differs from autograd "
+                        f"through mha_ref by "
+                        f"{float((x.float() - y.float()).abs().max())}")
+            worst[str(dtype)] = max(worst.get(str(dtype), 0.0), err)
+            cases += 1
+            del q, k, v, g, grads, outs
+    return {"cases": cases, "worst": worst, "worst_row": worst_row,
+            "control": control}
+
+
+def train_granite(device, smi: str) -> dict:
+    """Phase T1: granite-8b at full width, TRAIN_LAYERS of its 36
+    layers, bf16 compute over f32 masters with AdamW and block remat,
+    ``DataConfig(seq_len=4096, global_batch=2, seed=0)``:
+    ``TRAIN_STEPS`` steps through ``train(...)``.  Checks: step 1's
+    gradient of every leaf finite and non-zero, and two
+    ``flash_attention`` launches a layer (forward and remat recompute)
+    in that step and in every step of the run; step 1's loss and
+    gradient norm against the same step with the plain attention; a
+    finite loss at every step.  Logs the step seconds, tokens/s, model
+    FLOP/s share, peak memory and one profiled step.  Returns the launch
+    counts of the ``train(...)`` run."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import _Attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import init_params
+    from repro_torch.models.common import named_leaves
+    from repro_torch.train.optimizer import OptConfig, global_norm
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.train.trainer import TrainerConfig, to_device, train
+
+    full = get_config("granite-8b")
+    cfg = replace(full, n_layers=TRAIN_LAYERS, attn_impl="pallas")
+    if cfg.remat != "block" or cfg.dtype != "bfloat16":
+        raise AssertionError("granite-8b is not a bf16 config with block "
+                             "remat")
+    n_params = cfg.param_count()[0]
+    n_matmul = n_params - cfg.vocab_size * cfg.d_model   # all but the lookup
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ_LEN,
+                          global_batch=TRAIN_BATCH, seed=0)
+    opt_cfg = OptConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    masters = init_params(cfg, 0, device, masters=True)
+    torch.cuda.synchronize()
+    log(f"T1 granite-8b: {TRAIN_LAYERS} of {full.n_layers} layers (depth "
+        f"cut to fit one card: the whole model's f32 masters, gradients, m "
+        f"and v take {16 * full.param_count()[0] / 1e9:.1f} GB), full "
+        f"width, {n_params:,} parameters as f32 masters "
+        f"({4 * n_params / 1e9:.2f} GB), bf16 compute, block remat, AdamW; "
+        f"seq_len {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}; initialised in "
+        f"{time.perf_counter() - t0:.1f} s ({held / 1e9:.2f} GB held "
+        f"before)")
+
+    want_launches = 2 * TRAIN_LAYERS
+    batch = to_device(make_batch(data_cfg, 0), device)
+    FK.reset_launches()
+    loss, grads = value_and_grad(masters, batch, cfg)
+    torch.cuda.synchronize()
+    launched = FK.LAUNCHES["flash_attention"]
+    bad = [k for k, g in named_leaves(grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    gnorm = float(global_norm(grads))
+    n_leaves = len(named_leaves(grads))
+    if bad:
+        raise AssertionError(f"T1: {len(bad)} of {n_leaves} parameter leaves "
+                             f"got a zero or non-finite gradient: {bad[:8]}")
+    if launched != want_launches:
+        raise AssertionError(f"T1: one forward + backward launched "
+                             f"flash_attention {launched} times, not "
+                             f"{want_launches} (forward and remat recompute "
+                             f"of {TRAIN_LAYERS} layers)")
+
+    class Unmasked(_Attention):
+        """The control: the kernel's forward without the causal mask,
+        the causal recompute backward."""
+
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window, sm_scale, impl):
+            ctx.save_for_backward(q, k, v)
+            ctx.mask = (causal, window, sm_scale)
+            return FK.flash_attention(q, k, v, causal=False, window=window,
+                                      sm_scale=sm_scale)
+
+    def step_one(attention):
+        real = A.attention
+        A.attention = attention
+        try:
+            loss, grads = value_and_grad(masters, batch, cfg)
+        finally:
+            A.attention = real
+        return float(loss), float(global_norm(grads)), grads
+
+    def leaf_error(got, want):
+        """The largest over leaves of |got - want| / |want| (L2)."""
+        want = dict(named_leaves(want))
+        return max(float(torch.linalg.vector_norm(g - want[key])
+                         / torch.linalg.vector_norm(want[key]))
+                   for key, g in named_leaves(got))
+
+    plain_loss, plain_gnorm, plain_grads = step_one(
+        lambda q, k, v, causal, window, scale, impl: mha_ref(
+            q, k, v, causal=causal, window=window, sm_scale=scale))
+    leaf = leaf_error(grads, plain_grads)
+    del grads
+    c_loss, c_gnorm, c_grads = step_one(Unmasked.apply)
+    c_leaf = leaf_error(c_grads, plain_grads)
+    del c_grads, plain_grads
+
+    def within(loss_, gnorm_, leaf_=0.0) -> bool:
+        return (abs(loss_ - plain_loss) <= TRAIN_LOSS_RTOL * plain_loss
+                and abs(gnorm_ - plain_gnorm)
+                <= TRAIN_GNORM_RTOL * plain_gnorm
+                and leaf_ <= TRAIN_LEAF_RTOL)
+
+    log(f"T1 step 1: every one of {n_leaves} leaves has a finite, non-zero "
+        f"gradient; flash_attention launched {launched} times (forward and "
+        f"remat recompute of {TRAIN_LAYERS} layers); loss {float(loss):.6f} "
+        f"(plain attention {plain_loss:.6f}), grad norm {gnorm:.6g} (plain "
+        f"{plain_gnorm:.6g}), worst leaf's gradient {leaf:.4g} from the "
+        f"plain's (L2; limits {TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL} / "
+        f"{TRAIN_LEAF_RTOL} relative); control, the forward without the "
+        f"causal mask: loss {c_loss:.6f}, grad norm {c_gnorm:.6g}, worst "
+        f"leaf {c_leaf:.4g}")
+    if not within(float(loss), gnorm, leaf) \
+            or within(c_loss, c_gnorm, c_leaf):
+        raise AssertionError(
+            f"T1: step 1 with the flash kernel (loss {float(loss)}, grad "
+            f"norm {gnorm}, worst leaf {leaf}) or the control (loss "
+            f"{c_loss}, grad norm {c_gnorm}, worst leaf {c_leaf}) against "
+            f"the plain attention (loss {plain_loss}, grad norm "
+            f"{plain_gnorm}): the kernel must be within {TRAIN_LOSS_RTOL} / "
+            f"{TRAIN_GNORM_RTOL} / {TRAIN_LEAF_RTOL} relative, the control "
+            f"not")
+    del batch
+    torch.cuda.empty_cache()
+
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS,
+                             ckpt_every=TRAIN_STEPS + 1, ckpt_dir=ckpt_dir,
+                             log_every=1)
+        t0 = time.perf_counter()
+        result = train(cfg, data_cfg, opt_cfg, tcfg, params=masters,
+                       device=device)
+        seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": FK.LAUNCHES["flash_attention"]}
+    log_ = result.metrics_log
+    losses = [m["loss"] for m in log_]
+    if [m["step"] for m in log_] != list(range(TRAIN_STEPS)) \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"T1: losses not finite at every step: {log_}")
+    if launches["flash_attention"] != want_launches * TRAIN_STEPS:
+        raise AssertionError(
+            f"T1: train(...) launched flash_attention "
+            f"{launches['flash_attention']} times in {TRAIN_STEPS} steps, not "
+            f"{want_launches} a step")
+    first = log_[0]
+    if not within(first["loss"], first["grad_norm"]):
+        raise AssertionError(
+            f"T1: step 1 with the flash kernel (loss {first['loss']}, grad "
+            f"norm {first['grad_norm']}) differs from the plain attention "
+            f"(loss {plain_loss}, grad norm {plain_gnorm}) beyond "
+            f"{TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL}")
+    tokens = TRAIN_SEQ_LEN * TRAIN_BATCH
+    step_s = statistics.median(m["step_seconds"] for m in log_[1:])
+    flops = 6 * n_matmul * tokens
+    log(f"T1 train(...): {TRAIN_STEPS} steps in {seconds:.1f} s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step 1 vs plain attention: loss {first['loss']:.6f} / "
+        f"{plain_loss:.6f} (limit {TRAIN_LOSS_RTOL} relative), grad norm "
+        f"{first['grad_norm']:.6g} / {plain_gnorm:.6g} (limit "
+        f"{TRAIN_GNORM_RTOL}); flash_attention launched "
+        f"{launches['flash_attention']} times = {want_launches} x "
+        f"{TRAIN_STEPS} steps [{smi}]")
+    log(f"T1 step seconds (median of steps 2-{TRAIN_STEPS}) {step_s:.4f} "
+        f"(each: " + ", ".join(f"{m['step_seconds']:.4f}" for m in log_)
+        + f"); {tokens / step_s:.1f} tokens/s; model FLOP/s share "
+        f"{flops / step_s / BF16_OPS_PER_S:.4f} (6 x {n_matmul:,} "
+        f"non-embedding parameters x {tokens} tokens = {flops / 1e12:.2f} "
+        f"TFLOP a step, over 989 TFLOP/s bf16); peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) [{smi}]")
+
+    step_fn = make_train_step(cfg, opt_cfg)
+    params, opt_state = result.params, result.opt_state
+    batch = to_device(make_batch(data_cfg, TRAIN_STEPS), device)
+    prof = device_time(lambda: step_fn(params, opt_state, batch), device,
+                       mark=FLASH_MARK)
+    if prof["busy"] is None:
+        log("T1 one profiled step: device time not measured (the profiler "
+            "saw no device activity)")
+    else:
+        at, an = prof["filter"]
+        top = "; ".join(f"{key[:60]} {dt * 1e3:.2f} ms x{n}"
+                        for key, dt, n in prof["top"])
+        classes = {}
+        for key, dt, n in prof["events"]:
+            c = classes.setdefault(kernel_class(key), [0.0, 0])
+            c[0] += dt
+            c[1] += n
+        split = "; ".join(
+            f"{c} {dt * 1e3:.1f} ms x{n}" for c, (dt, n) in
+            sorted(classes.items(), key=lambda kv: -kv[1][0]))
+        log(f"T1 one profiled step: wall {prof['wall'] * 1e3:.1f} ms, device "
+            f"busy {prof['busy'] * 1e3:.1f} ms (idle share "
+            f"{1 - prof['busy'] / prof['wall']:.3f}), {prof['n_events']} "
+            f"device events; {FLASH_MARK} {at * 1e3:.3f} ms x{an}; by "
+            f"class: {split}; top device events: {top} [{smi}]")
+    del masters, params, opt_state, result, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_fault_tolerance(device) -> list:
+    """Phase T2: ``tests/test_train_ckpt.py``'s fault-tolerance tests on
+    the card at gemma3-1b-smoke (f32): a 12-step run and an 8-step run
+    preempted, then resumed, give bitwise-equal parameters and optimizer
+    state; 60 steps at vocab 128 lower the loss by more than 0.3.  The
+    resume needs every kernel of the step to be deterministic: this
+    phase runs under ``torch.use_deterministic_algorithms(True)``
+    (cuBLAS's workspace pinned by CUBLAS_WORKSPACE_CONFIG, set in main),
+    which makes the embedding lookup's and the loss's gather backward
+    accumulate in a fixed order; the flash kernel is deterministic by
+    construction (S1 checks two calls bitwise).  Returns what was
+    checked; raises on a failed check."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.common import named_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import (PreemptionError, TrainerConfig,
+                                           train)
+
+    cfg = replace(get_config("gemma3-1b-smoke"), attn_impl="pallas")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=12)
+    done = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+            def tcfg(name, steps=12, fail=None):
+                return TrainerConfig(total_steps=steps, ckpt_every=4,
+                                     ckpt_dir=os.path.join(root, name),
+                                     log_every=2, fail_after_step=fail)
+
+            full = train(cfg, data, opt, tcfg("a"), device=device)
+            try:
+                train(cfg, data, opt, tcfg("b", fail=8), device=device)
+                raise AssertionError("T2: the injected preemption did not "
+                                     "happen")
+            except PreemptionError:
+                pass
+            resumed = train(cfg, data, opt, tcfg("b"), device=device)
+            if resumed.resumed_from != 8:
+                raise AssertionError(f"T2: resumed from "
+                                     f"{resumed.resumed_from}, not 8")
+            pairs = [(k, a, b) for tree in ("params", "m", "v")
+                     for (k, a), (_, b) in zip(
+                         named_leaves(full.params if tree == "params"
+                                      else full.opt_state[tree]),
+                         named_leaves(resumed.params if tree == "params"
+                                      else resumed.opt_state[tree]))]
+            differ = [f"{k} ({float((a - b).abs().max()):.3g})"
+                      for k, a, b in pairs if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(f"T2: the resumed run differs from the "
+                                     f"uninterrupted one at {differ[:6]}")
+            done.append(f"12 steps = 8 steps, preempted, resumed from 8: "
+                        f"{len(pairs)} tensors bitwise equal")
+
+            small = replace(cfg, vocab_size=128)
+            r = train(small, DataConfig(vocab_size=64, seq_len=32,
+                                        global_batch=4),
+                      OptConfig(peak_lr=5e-3, warmup_steps=5,
+                                decay_steps=60),
+                      TrainerConfig(total_steps=60, ckpt_every=1000,
+                                    ckpt_dir=os.path.join(root, "c"),
+                                    log_every=5), device=device)
+            first = r.metrics_log[0]["loss"]
+            last = min(m["loss"] for m in r.metrics_log[-3:])
+            if not last < first - 0.3:
+                raise AssertionError(f"T2: 60 steps took the loss from "
+                                     f"{first} to {last}, not below "
+                                     f"{first - 0.3}")
+            done.append(f"60 steps at vocab 128: loss {first:.4f} -> "
+                        f"{last:.4f}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return done
+
+
+def training_phases(cuda, smi: str) -> dict:
+    """Phases T0-T2; returns the launch counts of T1's ``train(...)``
+    run, the training path."""
+    import torch
+
+    t0 = time.perf_counter()
+    # cuBLAS picks its algorithms deterministically under this flag
+    torch.use_deterministic_algorithms(True)
+    try:
+        sweep = train_attention_grads(cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"T0 flash_attention autograd Function vs autograd through "
+        f"mha_ref: {sweep['cases']} cases, dq, dk, dv bitwise equal; "
+        f"forward max |err| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in sweep["worst"].items())
+        + f" (limits {ATTN_ATOL}); bf16 per row {sweep['worst_row']:.4g} of "
+        f"the row's scale (limit {ROW_RTOL_BF16}); control at T1's shape "
+        f"without keys {CONTROL_TILE}: {sweep['control'][0]:.4g} of a row's "
+        f"scale (fails the limit), max |err| {sweep['control'][1]:.4g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches = train_granite(cuda, smi)
+    log(f"T1: {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    for line in train_fault_tolerance(cuda):
+        log(f"T2 gemma3-1b-smoke on the card: {line}")
+    log(f"T2: {time.perf_counter() - t2:.1f} s; T0-T2: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def relational_phases(cuda, smi: str, main_path_too: bool = True,
                       async_too: bool = True, checks: bool = True) -> list:
     """Phases 3-5 (``main_path_too``: the filter kernels, the TPC-DS
@@ -2088,11 +2592,13 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
     return kernels
 
 
-def attention_phases(cuda, smi: str, serve: bool, families: bool) -> list:
-    """Phases S1, S2 when ``serve`` and S3 when ``families``: the
-    attention kernels against their plain versions, their times, and
-    the serving paths; returns the kernels' JSON entries, whose
-    ``launches`` sum the launches of the serving paths that ran."""
+def attention_phases(cuda, smi: str, serve: bool, families: bool,
+                     training: bool) -> list:
+    """Phases S1, S2 when ``serve``, S3 when ``families`` and T0-T2 when
+    ``training``: the attention kernels against their plain versions,
+    their times, and the serving and training paths; returns the
+    kernels' JSON entries, whose ``launches`` sum the launches of the
+    paths that ran."""
     sweep = attention_sweep(cuda)
     log(f"attention kernels vs plain versions: decode_attention "
         f"{sweep['cases']['decode_attention']} cases, max |err| "
@@ -2117,6 +2623,8 @@ def attention_phases(cuda, smi: str, serve: bool, families: bool) -> list:
         by_path["serving"] = serving_path(cuda, smi)
     if families:
         by_path["families"] = family_phases(cuda, smi)
+    if training:
+        by_path["training"] = training_phases(cuda, smi)
     kernels = []
     for name, key, src, line in (
             ("decode_attention", "decode_attention/kv128", DECODE_CU,
@@ -2148,7 +2656,8 @@ def attention_phases(cuda, smi: str, serve: bool, families: bool) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
-                                       "serving", "families", "timings"),
+                                       "serving", "families", "training",
+                                       "timings"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -2199,10 +2708,11 @@ def main(argv=None) -> int:
             async_too=args.only != "relational",
             checks=args.only != "timings")
         torch.cuda.empty_cache()
-    if args.only in (None, "attention", "serving", "families"):
+    if args.only in (None, "attention", "serving", "families", "training"):
         kernels += attention_phases(
             cuda, smi, serve=args.only in (None, "serving"),
-            families=args.only in (None, "families"))
+            families=args.only in (None, "families"),
+            training=args.only in (None, "training"))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ inputs take the TMA + ``wgmma`` kernel, which reads strided q / k / v
 views through tensor maps (no copy where the strides are whole 16-byte
 units) and writes the output in q's layout; f32 inputs take the CUDA-core
 kernel on contiguous tensors.  Each launch adds one to
-:data:`LAUNCHES`.  Forward only: the recompute backward comes with the
-training path.
+:data:`LAUNCHES`.  Forward only: ``ops.attention`` carries the
+gradient, through a recompute of the plain version.
 """
 from __future__ import annotations
 

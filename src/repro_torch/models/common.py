@@ -9,12 +9,14 @@ and casts at every use; rounding once at init gives the same values and
 keeps a bf16 model from being re-cast on every step), ``ones``-init
 leaves in f32: RMSNorm weights, which the norm reads in f32, and Mamba's
 ``A_log`` / ``D`` and RG-LRU's ``lam``, which their blocks cast where the
-JAX package casts them.
+JAX package casts them.  Training draws the same values in f32 as
+masters (``model.init_params(..., masters=True)``) and casts them to
+these storage dtypes at every step (``model.cast_params``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -59,19 +61,25 @@ class ParamTree(nn.Module):
     """A nested parameter dict as a module: ``p["wq"]``, ``p["mix"]``,
     ``p["scan"][r]``.  Lists become ``nn.ModuleList``s, so the
     ``state_dict`` keys read like the JAX package's tree paths with the
-    repeat index spelled out (``layers.scan.0.0.mix.wq``)."""
+    repeat index spelled out (``layers.scan.0.0.mix.wq``).  A leaf
+    requires grad when the tensor it is given does (training's f32
+    masters); serving's leaves do not.  Subtrees may come as ParamTrees
+    already."""
 
     def __init__(self, tree: Dict):
         super().__init__()
         for key, val in tree.items():
             if isinstance(val, torch.Tensor):
                 self.register_parameter(
-                    key, nn.Parameter(val, requires_grad=False))
+                    key, nn.Parameter(val, requires_grad=val.requires_grad))
+            elif isinstance(val, ParamTree):
+                self.add_module(key, val)
             elif isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
             else:
                 self.add_module(key, nn.ModuleList(
-                    ParamTree(v) for v in val))
+                    v if isinstance(v, ParamTree) else ParamTree(v)
+                    for v in val))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -81,6 +89,41 @@ class ParamTree(nn.Module):
 
     def get(self, key: str, default=None):
         return self[key] if key in self else default
+
+
+def children(node) -> List[Tuple[str, Any]]:
+    """(key, child) pairs of a tree node: a dict, a list, a ParamTree
+    (its leaves, then its subtrees) or an ``nn.ModuleList``."""
+    if isinstance(node, ParamTree):
+        return list(node._parameters.items()) + list(node._modules.items())
+    if isinstance(node, dict):
+        return list(node.items())
+    return [(str(i), v) for i, v in enumerate(node)]
+
+
+def named_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf of a tree of tensors (dicts, lists,
+    ParamTrees), keys joined with "/" as the JAX package's checkpoint
+    keys are (``layers/scan/0/0/mix/wq``)."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    out: List[Tuple[str, torch.Tensor]] = []
+    for key, child in children(tree):
+        out += named_leaves(child, f"{prefix}/{key}" if prefix else key)
+    return out
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every leaf of ``tree``; the result has the
+    structure of ``tree``, with a ParamTree wherever ``tree`` has one."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    mapped = {key: tree_map(fn, child) for key, child in children(tree)}
+    if isinstance(tree, ParamTree):
+        return ParamTree(mapped)
+    if isinstance(tree, dict):
+        return mapped
+    return list(mapped.values())
 
 
 def map_specs(specs, fn):

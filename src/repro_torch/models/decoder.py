@@ -8,7 +8,9 @@ decoder loops over it.  Every block kind of ``config.BLOCK_KINDS`` runs:
 ``attn`` / ``local`` (GQA), ``mla``, ``mamba`` (no MLP) and ``rglru``.
 
 Two entry points per stack: :func:`decoder_forward` (parallel over a
-token block) and :func:`decoder_decode_step` (one token, caches updated
+token block; under grad, each pattern repeat is recomputed in the
+backward when ``cfg.remat`` asks, as the JAX package checkpoints its
+scan body) and :func:`decoder_decode_step` (one token, caches updated
 in place).
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import attention as A
@@ -68,16 +71,25 @@ def decoder_specs(cfg: ArchConfig) -> Dict:
     return specs
 
 
+def _groups(params, cfg: ArchConfig):
+    """The layers in order, grouped as the JAX package lays them out:
+    ``(repeat, [(block params, kind, ffn kind), ...])`` with ``repeat``
+    true for one pattern repeat of ``scan`` (its scan body) and false
+    for a single ``prefix`` or ``rem`` layer."""
+    for p in params.get("prefix", []):
+        yield False, [(p, cfg.pattern[0], "dense")]
+    for layer in params.get("scan", []):
+        yield True, [(layer[str(p_i)], kind, cfg.ffn_kind)
+                     for p_i, kind in enumerate(cfg.pattern)]
+    for i, p in enumerate(params.get("rem", [])):
+        yield False, [(p, cfg.pattern[i % len(cfg.pattern)], cfg.ffn_kind)]
+
+
 def _layers(params, cfg: ArchConfig):
     """(block params, kind, ffn kind) of every layer, in order; the
     index path of each block's cache matches (see ``_caches``)."""
-    for p in params.get("prefix", []):
-        yield p, cfg.pattern[0], "dense"
-    for layer in params.get("scan", []):
-        for p_i, kind in enumerate(cfg.pattern):
-            yield layer[str(p_i)], kind, cfg.ffn_kind
-    for i, p in enumerate(params.get("rem", [])):
-        yield p, cfg.pattern[i % len(cfg.pattern)], cfg.ffn_kind
+    for _, group in _groups(params, cfg):
+        yield from group
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +118,26 @@ def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
     return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype)
 
 
+def _group_forward(group, x: torch.Tensor, cfg: ArchConfig,
+                   positions: torch.Tensor, dtype) -> torch.Tensor:
+    for p, kind, ffn_kind in group:
+        x = block_forward(p, x, cfg, kind, ffn_kind, positions, dtype)
+    return x
+
+
 def decoder_forward(params, x: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor, dtype) -> torch.Tensor:
-    for p, kind, ffn_kind in _layers(params, cfg):
-        x = block_forward(p, x, cfg, kind, ffn_kind, positions, dtype)
+    """Every layer in order.  Under grad with ``cfg.remat`` "block" or
+    "full", each pattern repeat of ``scan`` keeps only its input for the
+    backward and runs again there; ``prefix`` and ``rem`` layers are
+    not recomputed, as in the JAX package."""
+    remat = cfg.remat in ("block", "full") and torch.is_grad_enabled()
+    for repeat, group in _groups(params, cfg):
+        if remat and repeat:
+            x = checkpoint(_group_forward, group, x, cfg, positions, dtype,
+                           use_reentrant=False)
+        else:
+            x = _group_forward(group, x, cfg, positions, dtype)
     return x
 
 

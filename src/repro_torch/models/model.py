@@ -1,4 +1,5 @@
-"""Language model wrapper: embeddings, forward, loss and decode step.
+"""Language model wrapper: embeddings, forward, loss and decode step,
+and training's f32 masters with their per-step cast (:func:`cast_params`).
 
 Modality frontends (VLM patches / audio frames) are stubs as in the JAX
 package: precomputed (B, n_prefix, d_model) embeddings arrive as an
@@ -13,7 +14,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .common import (ParamSpec, ParamTree, cross_entropy,
-                     materialize_params, rmsnorm, rmsnorm_spec)
+                     materialize_params, rmsnorm, rmsnorm_spec,
+                     storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -36,12 +38,37 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_params(cfg: ArchConfig, seed: int = 0,
-                device: DeviceLike = None) -> ParamTree:
+def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None,
+                masters: bool = False) -> ParamTree:
     """Random parameters from ``seed``, stored in ``cfg.dtype`` (norm
-    weights in f32) on ``device`` (``cuda`` unless asked otherwise)."""
-    return materialize_params(model_specs(cfg), seed, compute_dtype(cfg),
-                              resolve_device(device))
+    weights in f32) on ``device`` (``cuda`` unless asked otherwise).
+    With ``masters``, training's f32 masters instead, every leaf
+    requiring grad: the same draws before rounding, so
+    ``cast_params(init_params(cfg, s, masters=True), cfg)`` equals
+    ``init_params(cfg, s)``."""
+    dtype = torch.float32 if masters else compute_dtype(cfg)
+    params = materialize_params(model_specs(cfg), seed, dtype,
+                                resolve_device(device))
+    return params.requires_grad_(masters)
+
+
+def cast_params(masters, cfg: ArchConfig) -> Dict:
+    """The f32 masters cast to the storage dtypes serving uses
+    (matrices and embeddings to ``cfg.dtype``, ``ones``-init leaves
+    f32), as a nested dict of tensors that :func:`forward` and
+    :func:`loss_fn` take.  The cast is differentiable, so gradients of
+    a loss over the cast tree land on the masters, as the JAX package's
+    casts at every use carry them to its f32 parameters."""
+    dtype = compute_dtype(cfg)
+
+    def cast(spec, node):
+        if isinstance(spec, ParamSpec):
+            return node.to(storage_dtype(spec, dtype))
+        if isinstance(spec, dict):
+            return {k: cast(v, node[k]) for k, v in spec.items()}
+        return [cast(v, n) for v, n in zip(spec, node)]
+
+    return cast(model_specs(cfg), masters)
 
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
