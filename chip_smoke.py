@@ -50,20 +50,30 @@ process per source, all at once) and drives both of the port's paths:
   check), and printing step seconds,
   tokens/s, the model FLOP/s share, peak memory and one profiled step
   (T1); and runs the JAX package's fault-tolerance tests on the card:
-  a preempted, resumed run equals an uninterrupted one bitwise (T2).
+  a preempted, resumed run equals an uninterrupted one bitwise (T2);
+* surfaces (E1-E4), after the relational phases: the three examples
+  (``examples/torch_*.py``) on the card and on the CPU, whose printed
+  lines must agree apart from times, rates and speedups (E1); the
+  analytics server at SF1 on the card (E2); the async bench
+  (``benchmarks/torch_bench_async.py``) at the JAX bench's sizes on the
+  card and on the CPU, the card's windows replayed on the CPU for equal
+  tables and MQO decisions, its speed gate printed (E3); and the
+  serving launcher on the card (E4).
 
 ``--only relational|async|attention|serving|families|training|timings``
 runs one group (for bring-up: ``relational`` leaves out A0 and A,
 ``async`` runs the CSV decoder, A0 and A, ``serving``, ``families`` and
 ``training`` run S1 first, ``timings`` only times the filter kernel and
-the decoder); with no
-argument every phase runs.  ``--only timings --tree
+the decoder); ``--only surfaces`` runs E1-E4, and ``--only benches``
+runs the four other bench scripts on the card (not part of the whole
+run); with no argument every other phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
 one's can be timed in turns on one card.  It prints one
-line per phase.  The line before the last is the kernels' JSON; the
-last line is the device JSON.  Any failure exits non-zero; without CUDA it exits non-zero before
-any result.  The script imports nothing of the JAX package.
+line per phase and each phase's seconds.  The line before the last is
+the kernels' JSON; the last line is the device JSON.  Any failure exits
+non-zero; without CUDA it exits non-zero before any result.  The script
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -72,6 +82,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -89,9 +100,10 @@ DECODE_CU = ("src/repro_torch/kernels/decode_attention/csrc/"
 FLASH_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 SOURCES = (FILTER_SCAN_CU, CSV_PARSE_CU, DECODE_CU, FLASH_CU)
 WINDOW = 8                         # QueryService max_batch
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12              # H100 SXM f32 outside tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
+# The card's peaks (HBM bytes/s, f32 outside the tensor cores, bf16
+# tensor cores dense), set by set_peaks from the card's name through
+# repro_torch.launch.roofline.hardware
+HBM_BYTES_PER_S = F32_OPS_PER_S = BF16_OPS_PER_S = None
 F32_RTOL = 1e-5                    # card vs CPU f32 aggregates (see below)
 # The card and the CPU sum f32 aggregates through f64 prefix sums whose
 # association order differs (a parallel scan on the card), so a group's
@@ -111,6 +123,28 @@ def device_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def set_peaks(kind: str) -> str:
+    """Set the peaks the bounds are computed from to those of the card
+    named ``kind``; returns a line that states them.  The roofline
+    module is loaded from this checkout by its path, so that ``--tree``
+    still imports the package from the other checkout."""
+    import importlib.util
+
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S
+    path = ROOT / "src" / "repro_torch" / "launch" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_roofline", path)
+    roofline = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = roofline      # its dataclass looks it up
+    spec.loader.exec_module(roofline)
+    hw = roofline.hardware(kind)
+    HBM_BYTES_PER_S = hw.hbm_bytes_per_s
+    F32_OPS_PER_S = hw.f32_flops_per_s
+    BF16_OPS_PER_S = hw.bf16_flops_per_s
+    return (f"peaks of the {hw.part} (NVIDIA data sheet, dense): HBM "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s, f32 {F32_OPS_PER_S / 1e12:g} "
+            f"TFLOP/s, bf16 {BF16_OPS_PER_S / 1e12:g} TFLOP/s")
 
 
 def build_kernels(sources=SOURCES, root: Path = ROOT) -> tuple:
@@ -2351,7 +2385,8 @@ def train_granite(device, smi: str) -> dict:
         + f"); {tokens / step_s:.1f} tokens/s; model FLOP/s share "
         f"{flops / step_s / BF16_OPS_PER_S:.4f} (6 x {n_matmul:,} "
         f"non-embedding parameters x {tokens} tokens = {flops / 1e12:.2f} "
-        f"TFLOP a step, over 989 TFLOP/s bf16); peak memory "
+        f"TFLOP a step, over {BF16_OPS_PER_S / 1e12:g} TFLOP/s bf16); "
+        f"peak memory "
         f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated) [{smi}]")
 
     step_fn = make_train_step(cfg, opt_cfg)
@@ -2496,6 +2531,336 @@ def training_phases(cuda, smi: str) -> dict:
     log(f"T2: {time.perf_counter() - t2:.1f} s; T0-T2: "
         f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases E1-E4: the user surfaces (examples, the async bench, the launcher)
+# ---------------------------------------------------------------------------
+# E1's examples at tests/test_examples.py's reduced sizes, each with the
+# strings the JAX package's example test asserts
+EXAMPLES = (
+    ("examples/torch_quickstart.py", (),
+     ("identical=True", "selected", "QueryService")),
+    ("examples/torch_analytics_server.py",
+     ("--window", "6", "--scale-rows", "20000"),
+     ("aggregate ratio", "warm speedup over cold")),
+    ("examples/torch_llm_serving_mqo.py", ("--requests", "6"),
+     ("generations identical: True",)),
+)
+RELATIONAL_EXAMPLES = ("examples/torch_quickstart.py",
+                       "examples/torch_analytics_server.py")
+# The serving engine prefills a prompt one decode step a token, as the
+# JAX package's engine does (``serving/engine.py::_prefill_scan``), so
+# the serving surfaces launch decode_attention and not flash_attention,
+# whose path is ``Model.forward`` (S2) and training (T1).
+SERVING_KERNELS = ("decode_attention",)
+SURFACE_TIMEOUT_S = 900
+# Runs an example script or a module as ``__main__`` in a fresh process
+# and reports the kernel wrappers' launch counts on its last stderr line.
+SURFACE_RUNNER = r"""
+import json, runpy, sys
+target, argv = sys.argv[1], sys.argv[2:]
+from repro_torch.kernels.decode_attention import kernel as DK
+from repro_torch.kernels.filter_project import kernel as FK
+from repro_torch.kernels.flash_attention import kernel as AK
+sys.argv = [target, *argv]
+try:
+    if target.endswith(".py"):
+        runpy.run_path(target, run_name="__main__")
+    else:
+        runpy.run_module(target, run_name="__main__", alter_sys=True)
+finally:
+    sys.stdout.flush()
+    print("LAUNCHES " + json.dumps({**FK.LAUNCHES, **DK.LAUNCHES,
+                                    **AK.LAUNCHES}), file=sys.stderr,
+          flush=True)
+"""
+# What a printed line may carry that depends on the clock: a time, a
+# rate or a speedup (a number with a unit of s, ms, x or q/s), the
+# ratio of two times, and the async front's window sizes and tenants'
+# bytes (adaptive windows close on the clock, and pool bytes are
+# charged to the tenant whose query first touched them).
+TIMED = (re.compile(r"[\d.]+(?:/[\d.]+)*\s?(?:ms|s|x|q/s)\b"),
+         re.compile(r"(?<=aggregate ratio \(warm windowed / no-MQO\): )"
+                    r"\S+"),
+         re.compile(r"(?<=window sizes )\[[^\]]*\]"),
+         re.compile(r"(?<=bytes=)\d+B"))
+FLOAT = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?")
+# A degradation event names its ladder's rung.  With use_pallas_filter
+# off, the first rung is the kernel route on the card and the fused
+# torch function on the CPU (``Session._CARD_LADDER`` / ``_LADDER``), so
+# a fault retried in place at the first rung reads as either.
+CARD_RUNGS = (("->kernel'", "->fused-torch'"),)
+
+
+def timeless(line: str) -> str:
+    """``line`` with what depends on the clock masked as ``<t>``."""
+    for pattern in TIMED:
+        line = pattern.sub("<t>", line)
+    return line
+
+
+def lines_agree(a: str, b: str) -> bool:
+    """Two printed lines agree when they are equal once timeless, or
+    differ only in decimal numbers within F32_RTOL (f32 aggregates)."""
+    a, b = timeless(a), timeless(b)
+    if a == b:
+        return True
+    fa, fb = FLOAT.findall(a), FLOAT.findall(b)
+    return (FLOAT.sub("#", a) == FLOAT.sub("#", b) and len(fa) == len(fb)
+            and all(math.isclose(float(x), float(y), rel_tol=F32_RTOL,
+                                 abs_tol=0) for x, y in zip(fa, fb)))
+
+
+def card_as_cpu(out: str) -> str:
+    """A card run's output with its ladder's rung names read as the
+    CPU's."""
+    for card, cpu in CARD_RUNGS:
+        out = out.replace(card, cpu)
+    return out
+
+
+def first_disagreement(a: str, b: str):
+    """The first pair of lines of two outputs that does not agree, or
+    None; outputs of different lengths disagree at the shorter's end."""
+    la, lb = a.splitlines(), b.splitlines()
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not lines_agree(x, y):
+            return i, x, y
+    if len(la) != len(lb):
+        n = min(len(la), len(lb))
+        return n, (la[n:] or [""])[0], (lb[n:] or [""])[0]
+    return None
+
+
+def start_surface(target: str, args, device: str, threads=None):
+    """Start ``target`` (a script path or a module name) with ``args``
+    and ``--device device`` in a fresh process from the repository's
+    root; returns the process."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    path = str(ROOT / target) if target.endswith(".py") else target
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SURFACE_RUNNER, path, *args, "--device",
+         device], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    return proc
+
+
+def finish_surface(proc, label: str) -> tuple:
+    """Wait for a process of ``start_surface``; returns its stdout, its
+    kernel launches and its seconds since its start.  Raises unless it
+    exited 0."""
+    try:
+        out, err = proc.communicate(timeout=SURFACE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    last = [line for line in err.splitlines()
+            if line.startswith("LAUNCHES ")][-1]
+    return out, json.loads(last[len("LAUNCHES "):]), \
+        time.perf_counter() - proc.started
+
+
+def run_surface(target: str, args, device: str) -> tuple:
+    return finish_surface(start_surface(target, args, device),
+                          f"{target} on {device}")
+
+
+def examples_phase(smi: str) -> dict:
+    """E1: each example on the card and on the CPU (the CPU runs start
+    first and run beside the card's); each prints the JAX example's
+    strings, the card's and the CPU's lines agree (``lines_agree``),
+    the relational examples launch ``filter_scan_batch`` and the LLM
+    example ``decode_attention`` on the card, and the CPU runs launch
+    nothing.  Returns the card runs' launches."""
+    host = {target: start_surface(target, args, "cpu", threads=2)
+            for target, args, _ in EXAMPLES}
+    launches: dict = {}
+    try:
+        card = {target: run_surface(target, args, "cuda")
+                for target, args, _ in EXAMPLES}
+    finally:
+        cpu = {}
+        for target, proc in host.items():
+            cpu[target] = finish_surface(proc, f"{target} on cpu")
+    for target, args, strings in EXAMPLES:
+        (out, used, seconds), (want, cpu_used, _) = card[target], \
+            cpu[target]
+        missing = [s for s in strings if s not in out]
+        if missing:
+            raise AssertionError(f"E1 {target}: the card's output lacks "
+                                 f"{missing}")
+        bad = first_disagreement(card_as_cpu(out), want)
+        if bad:
+            raise AssertionError(f"E1 {target}: line {bad[0]} differs "
+                                 f"between card and CPU: {bad[1]!r} vs "
+                                 f"{bad[2]!r}")
+        need = (("filter_scan_batch",) if target in RELATIONAL_EXAMPLES
+                else SERVING_KERNELS)
+        if any(used.get(k, 0) <= 0 for k in need) or any(cpu_used.values()):
+            raise AssertionError(f"E1 {target}: card launches {used} (needs "
+                                 f"{need}), CPU launches {cpu_used}")
+        for k, v in used.items():
+            launches[k] = launches.get(k, 0) + v
+        lines = out.splitlines()
+        masked = sum(timeless(x) != x for x in lines)
+        log(f"E1 {target} {' '.join(args)}: card {seconds:.1f} s, "
+            f"{len(lines)} lines agree with the CPU's ({masked} with "
+            f"times masked), strings {list(strings)} present; card "
+            f"launches {used}, CPU launches none [{smi}]")
+    return launches
+
+
+def analytics_at_sf1(smi: str) -> dict:
+    """E2: the analytics server on SF1 ``store_sales`` on the card."""
+    args = ("--scale-rows", str(SF1_STORE_SALES_ROWS))
+    out, used, seconds = run_surface("examples/torch_analytics_server.py",
+                                     args, "cuda")
+    for s in ("aggregate ratio", "warm speedup over cold",
+              "subsumption_hit=True", "shared_dispatch="):
+        if s not in out:
+            raise AssertionError(f"E2: the output lacks {s!r}")
+    if used.get("filter_scan_batch", 0) <= 0:
+        raise AssertionError(f"E2 launched {used}")
+    keep = ("no-MQO baseline", "aggregate ratio", "warm speedup",
+            "queries with resident", "latency p50", "async adaptive")
+    for line in out.splitlines():
+        if line.startswith(keep):
+            log(f"E2 analytics_server SF1: {line}")
+    log(f"E2 card run: {seconds:.1f} s, launches {used} [{smi}]")
+    return used
+
+
+def async_bench_phase(cuda, smi: str) -> dict:
+    """E3: benchmarks/torch_bench_async.py at the JAX bench's sizes on
+    the card and on the CPU; every handle resolves (the bench raises
+    otherwise), and the card's windows replayed through the CPU's sync
+    front give the card's tables and MQO decisions.  The speed gate's
+    outcome on each device is printed, not raised."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    import torch_bench_async as B
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    card = B.run(cuda, keep=True)
+    launched = dict(K.LAUNCHES)
+    t_card = time.perf_counter() - t0
+    missing = [k for k in ("parse_fields", "filter_scan_batch")
+               if launched.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"E3 never launched {missing}")
+    t0 = time.perf_counter()
+    host = B.run("cpu")
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = B.verify(card, "cpu")
+    log(f"E3 replay: {n} queries of the card's windows through the "
+        f"CPU's sync front, tables and MQO decisions equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for label, out, seconds in (("card", card, t_card),
+                                ("cpu", host, t_cpu)):
+        f, a, s = out["fixed"], out["adaptive"], out["single_client"]
+        failures = B.gate(out)
+        log(f"E3 {label}: fixed {f['throughput_qps']:.2f} queries/s p50 "
+            f"{f['latency_p50_s'] * 1e3:.1f} ms p99 "
+            f"{f['latency_p99_s'] * 1e3:.1f} ms ({f['windows_closed']} "
+            f"windows); adaptive {a['throughput_qps']:.2f} queries/s p50 "
+            f"{a['latency_p50_s'] * 1e3:.1f} ms p99 "
+            f"{a['latency_p99_s'] * 1e3:.1f} ms ({a['windows_closed']} "
+            f"windows, batch target mean {a['adaptive_batch_mean']:.1f}, "
+            f"wait target mean {a['adaptive_wait_s_mean'] * 1e3:.1f} ms, "
+            f"window "
+            f"exec p99 read by the policy "
+            f"{a['window_exec_p99_s'] * 1e3:.1f} ms); adaptive/fixed "
+            f"{out['adaptive_over_fixed_throughput']:.4f}; single client "
+            f"sync {s['sync_mean_s'] * 1e3:.2f} ms (window exec "
+            f"{s['sync_exec_mean_s'] * 1e3:.2f}) async "
+            f"{s['async_mean_s'] * 1e3:.2f} ms (window exec "
+            f"{s['async_exec_mean_s'] * 1e3:.2f}), async/sync "
+            f"{s['async_over_sync_latency']:.4f}; gate "
+            f"{'holds' if not failures else 'fails: ' + '; '.join(failures)}"
+            f"; {seconds:.1f} s"
+            + (f", launches {launched} [{smi}]" if label == "card" else ""))
+    return launched
+
+
+def serve_launcher(smi: str) -> dict:
+    """E4: ``python -m repro_torch.launch.serve --arch granite-8b`` on
+    the card."""
+    out, used, seconds = run_surface("repro_torch.launch.serve",
+                                     ("--arch", "granite-8b"), "cuda")
+    served = [line for line in out.splitlines()
+              if line.startswith("served 8 requests")]
+    if not served or any(used.get(k, 0) <= 0 for k in SERVING_KERNELS):
+        raise AssertionError(f"E4: {out[-500:]!r}, launches {used}")
+    for line in out.splitlines()[:2]:
+        log(f"E4 launch.serve granite-8b-smoke: {line}")
+    log(f"E4 card run: {seconds:.1f} s, launches {used} [{smi}]")
+    return used
+
+
+def surfaces_phase(cuda, smi: str) -> dict:
+    """Phases E1-E4; returns the launches of each kernel over their
+    card runs."""
+    launches: dict = {}
+    for name, phase in (("E1", lambda: examples_phase(smi)),
+                        ("E2", lambda: analytics_at_sf1(smi)),
+                        ("E3", lambda: async_bench_phase(cuda, smi)),
+                        ("E4", lambda: serve_launcher(smi))):
+        t0 = time.perf_counter()
+        for k, v in phase().items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def scalars(out: dict) -> dict:
+    """A bench result's numbers and strings, and those of each row of
+    its lists of rows; the per-query lists are left out."""
+    keep = {}
+    for k, v in out.items():
+        if isinstance(v, list) and v and isinstance(v[0], dict):
+            keep[k] = [scalars(row) for row in v]
+        elif not isinstance(v, (list, dict)):
+            keep[k] = v
+    return keep
+
+
+BENCHES = ("torch_bench_filter_micro", "torch_bench_window_batch",
+           "torch_bench_service", "torch_bench_subsumption")
+
+
+def benches_phase(cuda, smi: str) -> None:
+    """The four other bench scripts on the card, at their defaults: each
+    one's correctness checks raise; its speed gate is printed."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    for name in BENCHES:
+        mod = __import__(name)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        if name == "torch_bench_service":
+            outs = (mod.run(cuda), mod.run_tracing_overhead(cuda))
+            failures = mod.gate(*outs)
+        else:
+            outs = (mod.run(cuda),)
+            failures = mod.gate(outs[0])
+        summary = json.dumps([scalars(o) for o in outs])
+        log(f"bench {name}: {summary}; launches {dict(K.LAUNCHES)}; gate "
+            f"{'holds' if not failures else 'fails: ' + '; '.join(failures)}"
+            f"; {time.perf_counter() - t0:.1f} s [{smi}]")
 
 
 def relational_phases(cuda, smi: str, main_path_too: bool = True,
@@ -2657,7 +3022,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
-                                       "timings"),
+                                       "timings", "surfaces", "benches"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -2692,6 +3057,7 @@ def main(argv=None) -> int:
     log(smi)
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; kernels of {tree}")
+    log(set_peaks(kind))
     sources = ((FILTER_SCAN_CU, CSV_PARSE_CU) if args.only == "timings"
                else SOURCES)
     seconds, usage = build_kernels(sources, tree)
@@ -2702,17 +3068,35 @@ def main(argv=None) -> int:
 
     cuda = torch.device("cuda")
     kernels = []
+    surfaces = None
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     if args.only in (None, "relational", "async", "timings"):
-        kernels += relational_phases(
+        kernels += phase("relational", lambda: relational_phases(
             cuda, smi, main_path_too=args.only != "async",
             async_too=args.only != "relational",
-            checks=args.only != "timings")
-        torch.cuda.empty_cache()
+            checks=args.only != "timings"))
+    if args.only in (None, "surfaces"):
+        surfaces = phase("surfaces", lambda: surfaces_phase(cuda, smi))
+    if args.only == "benches":
+        phase("benches", lambda: benches_phase(cuda, smi))
     if args.only in (None, "attention", "serving", "families", "training"):
-        kernels += attention_phases(
+        kernels += phase("attention", lambda: attention_phases(
             cuda, smi, serve=args.only in (None, "serving"),
             families=args.only in (None, "families"),
-            training=args.only in (None, "training"))
+            training=args.only in (None, "training")))
+    if surfaces is not None:
+        # the surfaces' card runs, beside the main path's count
+        for entry in kernels:
+            entry["launches_by_path"]["surfaces"] = surfaces.get(
+                "parse_fields" if entry["name"] == "parse_i32"
+                else entry["name"], 0)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,11 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.device import cli_device
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.trainer import TrainerConfig, train
 
+    device = cli_device(args.device)
     base = get_config(args.arch + "-smoke")
     cfg = replace(
         base, name=f"{args.arch}-train-demo",
@@ -52,7 +54,7 @@ def main():
                         decay_steps=args.steps)
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_every=100,
                          ckpt_dir=args.ckpt_dir, log_every=20)
-    result = train(cfg, data_cfg, opt_cfg, tcfg, device=args.device)
+    result = train(cfg, data_cfg, opt_cfg, tcfg, device=device)
     if result.resumed_from is not None:
         print(f"(resumed from checkpoint step {result.resumed_from})")
     for m in result.metrics_log:

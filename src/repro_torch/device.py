@@ -12,18 +12,26 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
+def resolve_device(device: DeviceLike = None,
+                   cpu_hint: str = 'device="cpu"') -> torch.device:
     """``device`` as a ``torch.device``; None means ``cuda``.
 
     Raises RuntimeError when CUDA is asked for (explicitly or by
-    default) and no GPU is available.
+    default) and no GPU is available; the message tells the caller to
+    pass ``cpu_hint``.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass device=\"cpu\" to run the port "
-            "on the CPU")
+            f"CUDA is not available; pass {cpu_hint} to run the port on "
+            f"the CPU")
     return dev
+
+
+def cli_device(arg: str) -> torch.device:
+    """``resolve_device`` for a script's ``--device`` flag: without a
+    GPU the default raises a RuntimeError that names the flag."""
+    return resolve_device(arg, cpu_hint="--device cpu")
 
 
 def on_card(device: Optional[torch.device]) -> bool:

@@ -31,9 +31,11 @@ def main(argv=None):
 
     from ..configs import get_config
     from ..data.pipeline import DataConfig
+    from ..device import cli_device
     from ..train.optimizer import OptConfig
     from ..train.trainer import TrainerConfig, train
 
+    device = cli_device(args.device)
     cfg = get_config(args.arch)
     data_cfg = DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -44,7 +46,7 @@ def main(argv=None):
     tcfg = TrainerConfig(total_steps=args.steps,
                          ckpt_every=args.ckpt_every,
                          ckpt_dir=args.ckpt_dir)
-    result = train(cfg, data_cfg, opt_cfg, tcfg, device=args.device)
+    result = train(cfg, data_cfg, opt_cfg, tcfg, device=device)
     print(f"finished at step {result.final_step}"
           + (f" (resumed from {result.resumed_from})"
              if result.resumed_from else ""))

@@ -23,6 +23,8 @@ from repro_torch.relational.tpcds import build_tpcds_session  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     sorted((ROOT / "src" / "repro_torch").rglob("*.cu")) + \
+    sorted((ROOT / "examples").glob("torch_*.py")) + \
+    sorted((ROOT / "benchmarks").glob("torch_*.py")) + \
     [ROOT / "chip_smoke.py"]
 
 
@@ -31,7 +33,9 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "repro_torch.kernels.filter_project.ops, repro_torch.configs, "
             "repro_torch.models, repro_torch.serving.engine, "
             "repro_torch.kernels.decode_attention.ops, "
-            "repro_torch.kernels.flash_attention.ops; "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.launch.roofline, repro_torch.launch.serve, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
@@ -48,6 +52,29 @@ def test_port_source_names_neither_jax_nor_the_jax_package(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
     assert "repro." not in text
+
+
+def test_scripts_load_neither_jax_nor_the_jax_package():
+    """Each example and bench script of the port, imported as a module
+    (its ``__main__`` block does not run), loads neither."""
+    scripts = [p for p in PORT_FILES
+               if p.parent.name in ("examples", "benchmarks")]
+    code = ("import importlib.util, sys\n"
+            "sys.path.insert(0, 'benchmarks')\n"
+            "for path in sys.argv[1:]:\n"
+            "    spec = importlib.util.spec_from_file_location("
+            "'m' + str(abs(hash(path))), path)\n"
+            "    spec.loader.exec_module("
+            "importlib.util.module_from_spec(spec))\n"
+            "print(sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, *map(str, scripts)],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert len(scripts) >= 9
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_entry_points_default_to_cuda():
