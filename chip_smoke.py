@@ -58,13 +58,27 @@ process per source, all at once) and drives both of the port's paths:
   (``benchmarks/torch_bench_async.py``) at the JAX bench's sizes on the
   card and on the CPU, the card's windows replayed on the CPU for equal
   tables and MQO decisions, its speed gate printed (E3); and the
-  serving launcher on the card (E4).
+  serving launcher on the card (E4);
+* multi-device (M), last: the relational stream at SF1 on a row-sharded
+  session (one controller; every card up to 4, else 4 shards of
+  ``cuda:0``) against the single-device card session, each shard's
+  filter and decoder launches counted, the sharded partitioned scan and
+  a per-shard sweep against the plain versions (M1); then one world of
+  2 SPMD ranks (a card each over NCCL, else both on ``cuda:0`` over
+  gloo): granite-8b's tensor-parallel train step against the single-
+  device step, with a control that leaves out the row-parallel
+  all-reduce, and gemma3-1b's bf16-compressed step, its update held
+  against the uncompressed f32 step's (M2),
+  llama4-scout's MoE FFN expert-parallel against ``moe_forward`` (M3),
+  and the TP masters saved and restored onto a world of 1, bitwise
+  (M4).
 
 ``--only relational|async|attention|serving|families|training|timings``
 runs one group (for bring-up: ``relational`` leaves out A0 and A,
 ``async`` runs the CSV decoder, A0 and A, ``serving``, ``families`` and
 ``training`` run S1 first, ``timings`` only times the filter kernel and
-the decoder); ``--only surfaces`` runs E1-E4, and ``--only benches``
+the decoder); ``--only sharded`` runs M alone (its kernels line
+carries launches only); ``--only surfaces`` runs E1-E4, and ``--only benches``
 runs the four other bench scripts on the card (not part of the whole
 run); with no argument every other phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
@@ -1917,12 +1931,15 @@ def serving_path(device, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 # phase S3: the Mamba, RG-LRU, MoE and MLA families
 # ---------------------------------------------------------------------------
-# (config, layers served; None = all of them).  Depth is the only cut,
-# and only for the two MoE models, whose whole stacks do not fit one
-# card (215.5 GB and 453.5 GB of bf16 parameters): llama4-scout keeps 6
-# of its 48 layers, deepseek-v2 4 of its 60 (its dense first layer and 3
-# MoE layers).  Widths are the published ones.
-FAMILIES = (("falcon-mamba-7b", None), ("recurrentgemma-9b", None),
+# (config, layers served; None = all of them).  Depth is the only cut.
+# The two MoE models' whole stacks do not fit one card (215.5 GB and
+# 453.5 GB of bf16 parameters): llama4-scout keeps 6 of its 48 layers,
+# deepseek-v2 4 of its 60 (its dense first layer and 3 MoE layers).
+# falcon-mamba-7b keeps 32 of 64 and recurrentgemma-9b 18 of 38 (6
+# repeats of its pattern) so that phase M fits the script's time: their
+# host-bound decode steps took 112-214 s of it whole.  Widths are the
+# published ones.
+FAMILIES = (("falcon-mamba-7b", 32), ("recurrentgemma-9b", 18),
             ("llama4-scout-17b-a16e", 6), ("deepseek-v2-236b", 4))
 PROFILED_FAMILIES = ("falcon-mamba-7b", "llama4-scout-17b-a16e")
 # The -smoke configs in f32, on the card against the CPU from the same
@@ -3018,11 +3035,870 @@ def attention_phases(cuda, smi: str, serve: bool, families: bool,
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase M: multi-device (row-sharded relational scans, SPMD training,
+# expert-parallel MoE, elastic restore)
+# ---------------------------------------------------------------------------
+# Relational meshes are one-controller: every card when there are
+# several (at most 4), else 4 shards that all name cuda:0.  SPMD worlds
+# are 2 ranks: one card each over NCCL where there are 2, else both on
+# cuda:0 over gloo with CUDA tensors.
+M_SHARDS_ONE_CARD = 4
+M_LOSS_RTOL, M_GNORM_RTOL = 2e-4, 1e-3
+M_MOE_RTOL = 1e-2                      # of max |moe_forward|: 2 bf16 ulps
+M_SWEEP_ROWS = (3000, 2049, 1023)      # odd counts; last shard(s) empty
+# M2b: lr from the first step, so the step moves each entry by ~lr and
+# an update of nothing, or along the negated gradient, is off by lr or
+# 2 lr.  The compressed update may differ from the f32 one by 2 lr where
+# the bf16 rounding (2^-7 of sum_r |g_r| over 2 ranks: two roundings of
+# 2^-8 and one bf16 addition) could flip the sign of AdamW's first
+# moment, by M_UPDATE_RTOL lr where it is far from that; at least half
+# the entries must be of the second kind
+M_COMP_OPT = dict(warmup_steps=1)
+M_BF16_SLACK = 2.0 ** -7
+M_UPDATE_RTOL = 2.0 ** -5
+# the SPMD sizes, passed to every rank (a CPU rehearsal swaps in the
+# -smoke configs and the cpu device type)
+M_CFG = dict(
+    archs={"train": "granite-8b", "moe": "llama4-scout-17b-a16e",
+           "compressed": "gemma3-1b"},
+    train_layers=4,                    # of granite-8b's 36 (M2)
+    train_seq=4096,
+    comp_seq=512,                      # gemma3-1b compressed step (M2)
+    moe_tokens=4096,                   # llama4-scout MoE input rows (M3)
+    device_type="cuda")                # every SPMD tensor lives there
+
+
+def m_sync(dev) -> None:
+    from repro_torch.device import synchronize
+    synchronize(dev)
+
+
+def m_peak(dev) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def m_relational_devices():
+    import torch
+
+    n = min(torch.cuda.device_count(), 4)
+    return ([f"cuda:{i}" for i in range(n)] if n >= 2
+            else ["cuda:0"] * M_SHARDS_ONE_CARD)
+
+
+def m_spmd_devices():
+    import torch
+
+    return (["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2
+            else ["cuda:0", "cuda:0"])
+
+
+def m_sharding(devices):
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import NamedSharding
+
+    mesh = make_test_mesh((len(devices),), ("data",), devices=devices)
+    return NamedSharding(mesh, ("data",))
+
+
+def m_shard_spies():
+    """Spies on the sharded route: every batch-mask call and every
+    per-shard CSV decode must add exactly one launch per shard (one for
+    a relation on one device, such as a cached CE) to the kernels'
+    counters.  Returns (counts, undo)."""
+    from repro_torch.kernels.filter_project import kernel as K
+    from repro_torch.relational import physical as PH
+
+    counts = {"mask_calls": 0, "decode_calls": 0, "bad": []}
+    real_mask, real_csv = PH._batch_masks, PH._csv_columns
+
+    def mask(ctx, child, *a, **kw):
+        n = PH._n_shards(child)
+        before = K.LAUNCHES["filter_scan_batch"]
+        out = real_mask(ctx, child, *a, **kw)
+        if n > 1:
+            counts["mask_calls"] += 1
+        if K.LAUNCHES["filter_scan_batch"] - before != n:
+            counts["bad"].append(("filter_scan_batch", n))
+        return out
+
+    def csv(raw, schema, needed, nrows, ctx):
+        before = K.LAUNCHES["parse_fields"]
+        out = real_csv(raw, schema, needed, nrows, ctx)
+        numeric = [c for c in needed
+                   if schema.coltype(c).kind in ("i32", "f32")]
+        if isinstance(raw, PH.RowShards) and numeric:
+            counts["decode_calls"] += 1
+            if K.LAUNCHES["parse_fields"] - before != len(raw.shards):
+                counts["bad"].append(("parse_fields", len(raw.shards)))
+        return out
+
+    PH._batch_masks, PH._csv_columns = mask, csv
+
+    def undo():
+        PH._batch_masks, PH._csv_columns = real_mask, real_csv
+    return counts, undo
+
+
+def m_tpcds(K, cuda, smi: str, sharding) -> dict:
+    """M1's stream: the 50 TPC-DS queries at SF1 in windows of 8, cold
+    then warm, columnar then CSV, on a row-sharded session and on a
+    single-device one on the card; tables, MQO decisions, pool bytes
+    equal, no DegradationEvent, every shard's kernels launched."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.relational import SessionConfig
+    from repro_torch.relational.tpcds import (build_tpcds_session,
+                                              tpcds_queries)
+
+    devices = [str(d) for d in sharding.mesh.devices.flat]
+    launches, by_device = {}, {}
+    qps = []
+    for fmt in ("columnar", "csv"):
+        single = build_tpcds_session(SF1_STORE_SALES_ROWS, fmt, device=cuda)
+        sharded = build_tpcds_session(
+            SF1_STORE_SALES_ROWS, fmt,
+            config=SessionConfig().with_execution(sharding=sharding))
+        single.enable_tracing()
+        sharded.enable_tracing()
+        for phase in ("cold", "warm"):
+            want = run_stream(single, tpcds_queries(single),
+                              lambda: synchronize(cuda))
+            counts, undo = m_shard_spies()
+            K.reset_launches()
+            try:
+                got = run_stream(sharded, tpcds_queries(sharded),
+                                 lambda: [torch.cuda.synchronize(d)
+                                          for d in dict.fromkeys(devices)])
+            finally:
+                undo()
+            for k, v in K.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in K.LAUNCHES_BY_DEVICE.items():
+                by_device[k] = by_device.get(k, 0) + v
+            for i, (a, b) in enumerate(zip(got["tables"], want["tables"])):
+                compare_tables(a, b, f"M1 {fmt}/{phase}/q{i}")
+            if got["decisions"] != want["decisions"]:
+                bad = [i for i, (x, y) in enumerate(
+                    zip(got["decisions"], want["decisions"])) if x != y]
+                raise AssertionError(f"M1 {fmt}/{phase}: MQO decisions of "
+                                     f"the sharded session differ at {bad}")
+            if counts["bad"] or counts["mask_calls"] == 0 or (
+                    fmt == "csv" and counts["decode_calls"] == 0):
+                raise AssertionError(f"M1 {fmt}/{phase}: per-shard launches "
+                                     f"wrong or missing: {counts}")
+            q1 = len(got["tables"]) / got["seconds"]
+            q0 = len(want["tables"]) / want["seconds"]
+            qps.append((fmt, phase, q1, q0))
+            log(f"M1 {fmt}/{phase}: sharded {q1:.2f} queries/s, single-"
+                f"device {q0:.2f} queries/s (no claim); {counts['mask_calls']}"
+                f" sharded mask calls and {counts['decode_calls']} sharded "
+                f"CSV decodes, each one launch a shard; tables and MQO "
+                f"decisions equal [{smi}]")
+        if single.memory.device_used != sharded.memory.device_used:
+            raise AssertionError(
+                f"M1 {fmt}: pool bytes differ: single "
+                f"{single.memory.device_used}, sharded "
+                f"{sharded.memory.device_used}")
+        events = sharded.telemetry().registry.value("events.total")
+        if events:
+            raise AssertionError(f"M1 {fmt}: {events} DegradationEvents")
+        del single, sharded
+        gc.collect()
+    for name in ("filter_scan_batch", "parse_fields"):
+        for d in dict.fromkeys(devices):
+            if by_device.get((name, d), 0) <= 0:
+                raise AssertionError(f"M1: {name} never launched on {d}")
+    log(f"M1 launches by (kernel, device): {by_device}; pool bytes equal")
+    return launches
+
+
+def m_partitioned(K, cuda, sharding) -> dict:
+    """The JAX package's TestShardedPartitionedScan at SF1: store_sales
+    range-partitioned 8 ways on ss_quantity, sharded and pruned, against
+    single-device and unpruned, bitwise (then an MQO family)."""
+    from repro_torch.relational import (ExecutionConfig, MemoryConfig,
+                                        Partitioning, Session,
+                                        SessionConfig)
+    from repro_torch.relational import expr as E
+    from repro_torch.relational.datagen import make_storage
+    from repro_torch.relational.tpcds import generate_tpcds_catalog
+
+    schema, nrows, cols = generate_tpcds_catalog(
+        SF1_STORE_SALES_ROWS, 0)["store_sales"]
+
+    def mk(shard, prune):
+        s = Session.from_config(SessionConfig(
+            execution=ExecutionConfig(sharding=shard, prune=prune),
+            memory=MemoryConfig(budget_bytes=1 << 31)),
+            device=None if shard else cuda)
+        st, _ = make_storage("store_sales", schema, nrows, "columnar",
+                             cols=cols)
+        s.register(st, columnar_for_stats=cols,
+                   partitioning=Partitioning("ss_quantity", "range", 8))
+        return s
+
+    plain, sharded = mk(None, False), mk(sharding, True)
+    preds = [E.cmp("ss_quantity", "<", 20),
+             E.and_(E.cmp("ss_quantity", ">", 10),
+                    E.cmp("ss_sales_price", "<", 50.0)),
+             E.or_(E.cmp("ss_quantity", "<", 5),
+                   E.cmp("ss_quantity", ">", 90))]
+
+    def q(s, p):
+        return s.table("store_sales").filter(p).project(
+            "ss_item_sk", "ss_quantity", "ss_sales_price")
+
+    K.reset_launches()
+    r2 = sharded.run_batch([q(sharded, p) for p in preds], mqo=False)
+    launched = dict(K.LAUNCHES)
+    r1 = plain.run_batch([q(plain, p) for p in preds], mqo=False)
+    for i, (a, b) in enumerate(zip(r1.results, r2.results)):
+        # live rows bitwise (pruning changes the estimate, and with it
+        # the output capacity, by up to one power of two)
+        m_bitwise(a.table, b.table, f"M1 partitioned/q{i}", live=True)
+    fam = [q(sharded, E.cmp("ss_quantity", "<", v)) for v in (30, 35, 40)]
+    ref = [q(plain, E.cmp("ss_quantity", "<", v)) for v in (30, 35, 40)]
+    rs, rr = sharded.run_batch(fam, mqo=True), plain.run_batch(ref, mqo=False)
+    for i, (a, b) in enumerate(zip(rr.results, rs.results)):
+        if a.table.row_multiset() != b.table.row_multiset():
+            raise AssertionError(f"M1 partitioned MQO family q{i} differs")
+    pruned = sum(1 for e in sharded._scan_pool.entries.values()
+                 if len(e.key) > 2 and isinstance(e.key[2], tuple)
+                 and len(e.key[2]) < 8)
+    log(f"M1 partitioned store_sales (range 8 on ss_quantity, "
+        f"{nrows:,} rows): sharded+pruned equals single-device unpruned "
+        f"bitwise over 3 queries, MQO family equal; {pruned} pruned "
+        f"partition-set scan entries; launches {launched}")
+    return launched
+
+
+def m_literal(K, cuda, sharding) -> dict:
+    """Phase 5's literal route (F2, F5 with use_pallas_filter=True and
+    shape_cache=False) on a row-sharded session: ``filter_scan`` on
+    every shard, tables equal the single-device literal route's."""
+    from repro_torch.relational import SessionConfig
+    from repro_torch.relational.tpcds import (build_tpcds_session,
+                                              tpcds_queries)
+
+    cfg = SessionConfig().with_execution(use_pallas_filter=True,
+                                         shape_cache=False)
+    picked = list(range(10, 20)) + list(range(40, 46))   # F2, F5
+    out = []
+    for shard in (None, sharding):
+        sess = build_tpcds_session(
+            SF1_STORE_SALES_ROWS,
+            config=cfg.with_execution(sharding=shard),
+            device=None if shard else cuda)
+        qs = tpcds_queries(sess)
+        K.reset_launches()
+        got = run_stream(sess, [qs[i] for i in picked],
+                         lambda: m_sync(sess.device))
+        out.append((got["tables"], dict(K.LAUNCHES),
+                    sess.telemetry().registry.value("events.total")))
+        del sess
+    (want, _, _), (tables, launched, events) = out
+    for i, a, b in zip(picked, tables, want):
+        compare_tables(a, b, f"M1 literal/q{i}")
+    n = len(list(sharding.mesh.devices.flat))
+    if launched["filter_scan"] < n or events:
+        raise AssertionError(f"M1 literal route: launches {launched}, "
+                             f"{events} events")
+    log(f"M1 literal route on the sharded session: {len(picked)} queries "
+        f"equal the single-device literal route's; filter_scan launched "
+        f"{launched['filter_scan']} times over {n} shards")
+    return launched
+
+
+def m_bitwise(a, b, label: str, live: bool = False) -> None:
+    """Tables equal bit for bit: every row of the capacity, or with
+    ``live`` the live rows only."""
+    import torch
+
+    if a.nrows != b.nrows or (not live and a.capacity != b.capacity):
+        raise AssertionError(f"{label}: rows {a.nrows}/{b.nrows}, capacity "
+                             f"{a.capacity}/{b.capacity}")
+    n = a.nrows if live else a.capacity
+    for c in a.columns:
+        x, y = a.columns[c][:n].cpu(), b.columns[c][:n].cpu()
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{label}.{c}: not bitwise equal")
+
+
+def m_sweep(K, cuda, sharding) -> int:
+    """Each kernel's sharded masks against its plain version on the CPU
+    for the same columns, bitwise, at odd row counts whose last shards
+    hold few or no live rows: filter_scan_batch (slotted route),
+    filter_scan (literal route) and parse_fields (CSV scans)."""
+    import torch
+
+    from repro_torch.relational import (ExecutionConfig, MemoryConfig,
+                                        Session, SessionConfig)
+    from repro_torch.relational import expr as E
+    from repro_torch.relational.datagen import (generate_columns,
+                                                make_storage,
+                                                synthetic_schema)
+
+    schema = synthetic_schema(n_int=3, n_dbl=2, n_str=1)
+    preds = [E.cmp("n1", ">", 500),
+             E.and_(E.cmp("n2", "<", 700), E.cmp("d1", ">", 0.25)),
+             E.or_(E.cmp("n1", "<", 50), E.cmp("d2", ">=", 0.9)),
+             E.not_(E.cmp("n3", "==", 7))]
+    cases = 0
+    for nrows in M_SWEEP_ROWS:
+        cols = generate_columns(schema, nrows, seed=nrows)
+        for fmt in ("columnar", "csv"):
+            for route, kw in (("slotted", {}),
+                              ("literal", dict(shape_cache=False,
+                                               use_pallas_filter=True))):
+                def mk(shard, device):
+                    s = Session.from_config(SessionConfig(
+                        execution=ExecutionConfig(sharding=shard, **kw),
+                        memory=MemoryConfig(budget_bytes=1 << 26)),
+                        device=device)
+                    st, _ = make_storage("t", schema, nrows, fmt, cols=cols)
+                    s.register(st, columnar_for_stats=cols)
+                    return s
+
+                card, host = mk(sharding, None), mk(None, torch.device("cpu"))
+                K.reset_launches()
+                a = card.run_batch([card.table("t").filter(p).project(
+                    "n1", "d1", "s1") for p in preds], mqo=False)
+                launched = dict(K.LAUNCHES)
+                b = host.run_batch([host.table("t").filter(p).project(
+                    "n1", "d1", "s1") for p in preds], mqo=False)
+                for i, (x, y) in enumerate(zip(a.results, b.results)):
+                    m_bitwise(x.table, y.table,
+                              f"M1 sweep {nrows}/{fmt}/{route}/p{i}")
+                    cases += 1
+                need = "filter_scan_batch" if route == "slotted" \
+                    else "filter_scan"
+                if launched[need] <= 0 or (fmt == "csv"
+                                           and launched["parse_fields"] <= 0):
+                    raise AssertionError(f"M1 sweep {nrows}/{fmt}/{route}: "
+                                         f"no kernel launch: {launched}")
+    return cases
+
+
+def m_relational(cuda, smi: str) -> dict:
+    """Phase M1."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    devices = m_relational_devices()
+    sharding = m_sharding(devices)
+    log(f"M1 relational mesh: {len(devices)} shards over {devices} "
+        f"(one controller) [{smi}]")
+    launches = m_tpcds(K, cuda, smi, sharding)
+    for more in (m_partitioned(K, cuda, sharding),
+                 m_literal(K, cuda, sharding)):
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+    cases = m_sweep(K, cuda, sharding)
+    log(f"M1 sweep: sharded filter_scan_batch, filter_scan and "
+        f"parse_fields equal their plain versions on the CPU bitwise over "
+        f"{cases} cases (rows {M_SWEEP_ROWS}, {len(devices)} shards)")
+    return launches
+
+
+def m_digest(t) -> tuple:
+    """Two order-sensitive integer sums of a tensor's bits."""
+    import torch
+
+    flat = t.detach().contiguous().view(-1)
+    words = flat.view(torch.int32 if flat.element_size() == 4
+                      else torch.int16).to(torch.int64)
+    w = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return int(words.sum()), int((words * w).sum())
+
+
+def m_granite_cfg():
+    from repro_torch.configs import get_config
+
+    return replace(get_config(M_CFG["archs"]["train"]), n_layers=M_CFG["train_layers"],
+                   attn_impl="pallas")
+
+
+def m_granite_batch(cfg, device):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.trainer import to_device
+
+    return to_device(make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=M_CFG["train_seq"], global_batch=1,
+        seed=0), 0), device)
+
+
+def m_moe_inputs(device):
+    """llama4-scout's MoE FFN parameters (bf16, seed 0) and one layer's
+    input rows (M_CFG["moe_tokens"] x d_model, unit scale, seed 1)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import materialize_params
+
+    cfg = get_config(M_CFG["archs"]["moe"])
+    p = materialize_params(F.moe_specs(cfg), 0, torch.bfloat16, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    x = torch.randn((1, M_CFG["moe_tokens"], cfg.d_model), generator=gen,
+                    device=device, dtype=torch.float32).to(torch.bfloat16)
+    return cfg, p, x
+
+
+def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
+    """One SPMD rank of phase M's world: M2 (the TP train step and its
+    control, the compressed step), M3 (expert-parallel MoE) and M4's
+    save.  Returns host values only."""
+    M_CFG.update(cfg_m)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.launch.sharding import (NamedSharding, device_put,
+                                             param_shardings, placements)
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import (activation_sharding,
+                                           named_leaves, tree_map)
+    from repro_torch.models.model import (cast_params, init_params,
+                                          loss_fn, model_specs)
+    from repro_torch.train.optimizer import OptConfig, adamw_update
+    from repro_torch.train.train_step import (compress_and_reduce,
+                                              init_train_state,
+                                              make_compressed_train_step,
+                                              make_train_step,
+                                              value_and_grad)
+    from repro_torch.train.trainer import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.devices.flat[rank]
+    devs = np.empty(mesh.size, dtype=object)
+    devs[:] = list(mesh.devices.flat)
+    out = {}
+
+    def on_card(tree):
+        bad = [k for k, v in named_leaves(tree)
+               if (v.to_local() if hasattr(v, "to_local") else v)
+               .device.type != M_CFG["device_type"]]
+        if bad:
+            raise AssertionError(f"rank {rank}: leaves off the card: "
+                                 f"{bad[:4]}")
+
+    seen = []
+    real_ar = dist.all_reduce
+
+    def spy(t, *a, **kw):
+        if t.device.type != M_CFG["device_type"]:
+            raise AssertionError(f"rank {rank}: a collective on {t.device}")
+        seen.append(str(t.dtype).replace("torch.", ""))
+        return real_ar(t, *a, **kw)
+
+    # ---- M2a: granite-8b TP over ("model",) ----------------------------
+    tp = Mesh(devs, ("model",))
+    cfg = m_granite_cfg()
+    masters = init_params(cfg, 0, dev, masters=True)
+    params = device_put(masters, param_shardings(model_specs(cfg), cfg, tp))
+    del masters
+    torch.cuda.empty_cache()
+    on_card(params)
+    batch = m_granite_batch(cfg, dev)
+    step = make_train_step(cfg, OptConfig())
+    opt = init_train_state(cfg, params)
+    FK.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    m_sync(dev)
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)
+    loss = float(metrics["loss"].full_tensor()
+                 if hasattr(metrics["loss"], "full_tensor")
+                 else metrics["loss"])
+    gnorm = metrics["grad_norm"]
+    gnorm = float(gnorm.full_tensor() if hasattr(gnorm, "full_tensor")
+                  else gnorm)
+    m_sync(dev)
+    out["m2"] = dict(loss=loss, gnorm=gnorm,
+                     seconds=time.perf_counter() - t0,
+                     peak=m_peak(dev),
+                     flash=FK.LAUNCHES["flash_attention"],
+                     held=sum(
+                         (v.to_local() if hasattr(v, "to_local") else v)
+                         .numel() * 4 for _, v in named_leaves(params)))
+    # the control: the row-parallel products' all-reduce left out (a
+    # Partial placement read as if reduced)
+    real_reduce = Partial._reduce_value
+    Partial._reduce_value = lambda self, tensor, mesh, mesh_dim: tensor
+    try:
+        with torch.no_grad(), implicit_replication():
+            c = loss_fn(cast_params(params, cfg), batch, cfg)
+        out["m2"]["control_loss"] = float(
+            c.full_tensor() if hasattr(c, "full_tensor") else c)
+    finally:
+        Partial._reduce_value = real_reduce
+    del opt, batch, step, metrics
+    # M4's save: rank 0 writes the gathered masters; each rank's local
+    # blocks are digested for the restore world to check
+    out["digests"] = {k: (str(tuple(v.placements)),
+                          m_digest(v.to_local()))
+                      for k, v in named_leaves(params)}
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir, keep=1).save(1, params, blocking=True)
+    out["save_seconds"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- M3: llama4-scout's MoE FFN, expert-parallel --------------------
+    ep = Mesh(devs.reshape(1, mesh.size), ("data", "model"))
+    mcfg, p, x = m_moe_inputs(dev)
+    routes = []
+    real_route = F.route
+
+    def route_spy(c, logits):
+        r = real_route(c, logits)
+        routes.append(r.top_idx.cpu())
+        return r
+
+    F.route = route_spy
+    try:
+        pd = device_put(p, param_shardings(F.moe_specs(mcfg), mcfg, ep))
+        del p
+        xd = device_put(x, NamedSharding(ep, ()))
+        on_card(pd)
+        outs = []
+        with torch.no_grad(), implicit_replication(), \
+                activation_sharding(ep, moe_ep=(("data",), "model")):
+            for _ in range(2):
+                m_sync(dev)
+                t0 = time.perf_counter()
+                y = F.ffn_forward(pd, xd, mcfg, "moe", torch.bfloat16)
+                y = y.full_tensor()
+                m_sync(dev)
+                outs.append((y, time.perf_counter() - t0))
+    finally:
+        F.route = real_route
+    ref_out, ref_idx = moe_ref
+    y0 = outs[0][0].float().cpu()
+    out["m3"] = dict(
+        routes_equal=all(torch.equal(r, ref_idx) for r in routes),
+        n_routes=len(routes),
+        max_err=float((y0 - ref_out.float()).abs().max()),
+        ref_max=float(ref_out.float().abs().max()),
+        repeat_bitwise=torch.equal(outs[0][0], outs[1][0]),
+        seconds=[s for _, s in outs])
+    del pd, xd, outs, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- M2b: gemma3-1b at full width, bf16-compressed gradients -------
+    # the compressed step's update held against the uncompressed f32
+    # data-parallel step's update from the same masters and batches
+    # (M_COMP_OPT: lr from the first step, so each entry moves by ~lr)
+    dp = Mesh(devs, ("data",))
+    gcfg = replace(get_config(M_CFG["archs"]["compressed"]), attn_impl="pallas")
+    opt_cfg = OptConfig(**M_COMP_OPT)
+    groups = [device_mesh(dp).get_group("data")]
+    masters = init_params(gcfg, 0, dev, masters=True)
+    data = DataConfig(vocab_size=gcfg.vocab_size, seq_len=M_CFG["comp_seq"],
+                      global_batch=mesh.size, process_index=rank,
+                      process_count=mesh.size, seed=0)
+    mine = to_device(make_batch(data, 0), dev)
+    _, grads = value_and_grad(masters, mine, gcfg)
+    worst, n_el, slack = 0.0, 0, []
+    dist.all_reduce = spy
+    try:
+        for _, g in named_leaves(grads):
+            # how far the compressed reduced gradient may lie from the
+            # f32 one: 2 ranks' bf16 roundings and one bf16 addition,
+            # M_BF16_SLACK of sum_r |g_r|, plus 1e-5 of the leaf's
+            # largest |g| for two f32 evaluations of the gradient
+            x = g.abs()
+            dist.all_reduce(x)
+            slack.append(M_BF16_SLACK * x + 1e-5 * float(x.max()))
+            del x
+            seen.clear()
+            f32 = g.clone()
+            dist.all_reduce(f32)
+            f32 = f32 / mesh.size
+            c16, _ = compress_and_reduce(g, torch.zeros_like(g), groups)
+            if seen != ["float32", "bfloat16"]:
+                raise AssertionError(f"rank {rank}: collectives {seen}")
+            # atol=1e-2, rtol=2e-2 (the JAX package's test): the worst
+            # ratio of |c16 - f32| to its allowance
+            ratio = float(((c16 - f32).abs()
+                           / (1e-2 + 2e-2 * f32.abs())).max())
+            worst = max(worst, ratio)
+            n_el += g.numel()
+            g.copy_(f32)                     # the f32 step's gradient
+            del f32, c16
+    finally:
+        dist.all_reduce = real_ar
+    # the uncompressed data-parallel step, on a copy of the masters
+    plain = tree_map(lambda p: p.detach().clone(), masters)
+    plain, fstate, fm = adamw_update(plain, grads, init_train_state(
+        gcfg, plain), opt_cfg)
+    lr = float(fm["lr"])
+    scale = min(1.0, opt_cfg.grad_clip / float(fm["grad_norm"]))
+    # each entry's allowance: a step moves it by lr m_hat / sqrt(v_hat),
+    # and a change dm of the first moment m moves that by up to about
+    # lr dm / |m|; dm is the slack carried into m.  So 2 lr
+    # min(1, dm / |m|), plus M_UPDATE_RTOL lr
+    allow, tight = [], 0
+    for (_, m) in named_leaves(fstate["m"]):
+        u = slack.pop(0)
+        a = 2 * lr * torch.clamp((1 - opt_cfg.b1) * scale * u
+                                 / m.abs().clamp_min(1e-30), max=1.0)
+        a += M_UPDATE_RTOL * lr
+        tight += int((a < lr / 2).sum())
+        allow.append(a.cpu())
+        del u, a
+    # the f32 step's masters and the allowances wait in host memory,
+    # so that the compressed step has the card as it had before
+    plain = tree_map(lambda p: p.cpu(), plain)
+    del grads, fstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.all_reduce = spy
+    try:
+        seen.clear()
+        cstep = make_compressed_train_step(gcfg, opt_cfg, dp, ("data",))
+        m_sync(dev)
+        t0 = time.perf_counter()
+        masters, state, metrics = cstep(masters, init_train_state(
+            gcfg, masters), mine)
+        m_sync(dev)
+        step_s = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = real_ar
+    over, update_worst = 0, 0.0
+    for (_, p), (_, q), a in zip(named_leaves(masters), named_leaves(plain),
+                                 allow):
+        d = (p.detach() - q.to(dev)).abs()
+        a = a.to(dev)
+        over += int((d > a).sum())
+        update_worst = max(update_worst, float((d / a).max()))
+        del d, a
+    out["m2b"] = dict(worst=worst, elements=n_el, step_seconds=step_s,
+                      dtypes=sorted(set(seen)), loss=float(metrics["loss"]),
+                      lr=lr, over=over, update_worst=update_worst,
+                      tight=tight,
+                      finite=all(bool(torch.isfinite(v).all()) for _, v in
+                                 named_leaves(masters)))
+    del plain, allow
+    del masters, state, metrics, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def m_restore_rank(rank, mesh, cfg_m, ckpt_dir, saved_world):
+    """M4: the granite masters saved by M2's world restored onto this
+    world (TP over its ("model",) axis); every leaf's bits checked
+    against the saving ranks' blocks, on the placements asked for."""
+    M_CFG.update(cfg_m)
+    import torch
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch.sharding import param_shardings, placements
+    from repro_torch.models.common import map_specs, named_leaves
+    from repro_torch.models.model import model_specs
+
+    cfg = m_granite_cfg()
+    specs = model_specs(cfg)
+    like = map_specs(specs, lambda s: torch.empty(s.shape))
+    sh = param_shardings(specs, cfg, mesh)
+    t0 = time.perf_counter()
+    step, tree = CheckpointManager(ckpt_dir, keep=1).restore(like,
+                                                             shardings=sh)
+    seconds = time.perf_counter() - t0
+    want_pl = {}
+    for (k, _), s in zip(named_leaves(like), _flat_shardings(sh)):
+        want_pl[k] = tuple(placements(s))
+    bad = []
+    for k, v in named_leaves(tree):
+        if tuple(v.placements) != want_pl[k] or \
+                v.to_local().device.type != M_CFG["device_type"]:
+            bad.append((k, "placement"))
+            continue
+        full = v.full_tensor()
+        for r, (pl, dig) in enumerate(saved_world[k]):
+            if "Shard" in pl:
+                dim = int(pl.split("dim=")[1].split(")")[0])
+                block = torch.chunk(full, len(saved_world[k]), dim)[r]
+            else:
+                block = full
+            if m_digest(block) != dig:
+                bad.append((k, r))
+    return dict(step=step, bad=bad, seconds=seconds,
+                leaves=len(named_leaves(tree)))
+
+
+def _flat_shardings(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _flat_shardings(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _flat_shardings(v)
+    else:
+        yield tree
+
+
+def m_spmd(cuda, smi: str) -> dict:
+    """Phases M2-M4 in one SPMD world of 2 ranks, checked against the
+    single-device runs made here first."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import backend, make_test_mesh, spawn
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import named_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    devices = m_spmd_devices()
+    world = make_test_mesh((2,), ("model",), devices=devices)
+    log(f"M2-M4 SPMD world: 2 ranks on {devices} over "
+        f"{backend(world)} [{smi}]")
+
+    # single-device references on the card
+    cfg = m_granite_cfg()
+    masters = init_params(cfg, 0, cuda, masters=True)
+    batch = m_granite_batch(cfg, cuda)
+    FK.reset_launches()
+    m_sync(cuda)
+    t0 = time.perf_counter()
+    _, _, ref = make_train_step(cfg, OptConfig())(
+        masters, init_train_state(cfg, masters), batch)
+    ref_loss, ref_gnorm = float(ref["loss"]), float(ref["grad_norm"])
+    m_sync(cuda)
+    ref_s = time.perf_counter() - t0
+    del masters, batch, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg, p, x = m_moe_inputs(cuda)
+    routes = []
+    real_route = F.route
+    F.route = lambda c, lg: routes.append(real_route(c, lg)) or routes[-1]
+    try:
+        with torch.no_grad():
+            y = F.moe_forward(p, x, mcfg, torch.bfloat16)
+    finally:
+        F.route = real_route
+    moe_ref = (y.cpu(), routes[0].top_idx.cpu())
+    del p, x, y, routes
+    torch.cuda.empty_cache()
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
+        t0 = time.perf_counter()
+        outs = spawn(m_rank, world, M_CFG, ckpt_dir, moe_ref)
+        world_s = time.perf_counter() - t0
+        m2 = [o["m2"] for o in outs]
+        for r, o in enumerate(m2):
+            ok = (abs(o["loss"] - ref_loss) <= M_LOSS_RTOL * ref_loss
+                  and abs(o["gnorm"] - ref_gnorm) <= M_GNORM_RTOL * ref_gnorm)
+            ctl = abs(o["control_loss"] - ref_loss) <= M_LOSS_RTOL * ref_loss
+            log(f"M2 granite-8b TP rank {r}: loss {o['loss']:.6f} (single "
+                f"device {ref_loss:.6f}), grad norm {o['gnorm']:.6g} "
+                f"({ref_gnorm:.6g}); limits {M_LOSS_RTOL} / {M_GNORM_RTOL} "
+                f"relative; control without the row-parallel all-reduce: "
+                f"loss {o['control_loss']:.6f}; step {o['seconds']:.2f} s "
+                f"(single device {ref_s:.2f} s), masters held "
+                f"{o['held'] / 1e9:.2f} GB, peak "
+                f"{o['peak'] / 1e9:.2f} GB; flash_attention launched "
+                f"{o['flash']} times [{smi}]")
+            if not ok or ctl:
+                raise AssertionError(f"M2 rank {r}: sharded step or control "
+                                     f"against the single-device step: {o}")
+            if o["flash"] <= 0 and M_CFG["device_type"] == "cuda":
+                raise AssertionError(f"M2 rank {r}: flash_attention never "
+                                     f"launched")
+        for r, o in enumerate(outs):
+            m3 = o["m3"]
+            log(f"M3 llama4-scout MoE FFN rank {r}: routes equal "
+                f"moe_forward's: {m3['routes_equal']} ({m3['n_routes']} "
+                f"calls); max |err| {m3['max_err']:.4g} of max |out| "
+                f"{m3['ref_max']:.4g} (limit {M_MOE_RTOL} of it); repeat "
+                f"bitwise: {m3['repeat_bitwise']}; seconds "
+                f"{m3['seconds']} [{smi}]")
+            if not (m3["routes_equal"] and m3["repeat_bitwise"]
+                    and m3["max_err"] <= M_MOE_RTOL * m3["ref_max"]):
+                raise AssertionError(f"M3 rank {r}: {m3}")
+            b = o["m2b"]
+            log(f"M2 gemma3-1b compressed step rank {r}: reduced gradients "
+                f"within atol 1e-2 / rtol 2e-2 of the f32 all-reduce (worst "
+                f"{b['worst']:.4f} of the allowance over {b['elements']:,} "
+                f"elements); the update against the uncompressed f32 step's "
+                f"at lr {b['lr']:.3g}: {b['over']} entries over their "
+                f"allowance (worst {b['update_worst']:.4f} of it), "
+                f"{b['tight']:,} entries held below lr / 2; the step's "
+                f"collectives {b['dtypes']}; loss {b['loss']:.4f}; step "
+                f"{b['step_seconds']:.2f} s [{smi}]")
+            if b["worst"] > 1 or b["dtypes"] != ["bfloat16"] \
+                    or not b["finite"] or b["over"] \
+                    or b["tight"] < b["elements"] / 2:
+                raise AssertionError(f"M2 compressed rank {r}: {b}")
+        saved = {}
+        for o in outs:
+            for k, v in o["digests"].items():
+                saved.setdefault(k, []).append(v)
+        worlds = [make_test_mesh((1,), ("model",), devices=devices[:1])]
+        if torch.cuda.device_count() >= 2:
+            worlds.append(world)
+        for w in worlds:
+            res = spawn(m_restore_rank, w, M_CFG, ckpt_dir, saved)
+            for r, o in enumerate(res):
+                if o["step"] != 1 or o["bad"]:
+                    raise AssertionError(f"M4 restore onto {w.size}: {o}")
+            log(f"M4 restore: {res[0]['leaves']} leaves saved by the world "
+                f"of 2 (save {outs[0]['save_seconds']:.1f} s) restored onto "
+                f"a world of {w.size} in {res[0]['seconds']:.1f} s, every "
+                f"leaf bitwise equal on the placements asked for [{smi}]")
+    log(f"M2-M4 world: {world_s:.1f} s")
+    return {"flash_attention": sum(o["m2"]["flash"] for o in outs)}
+
+
+M_KERNELS = (
+    ("filter_scan_batch", FILTER_SCAN_CU,
+     "src/repro/kernels/filter_project/kernel.py:122", "filter_scan_batch"),
+    ("filter_scan", FILTER_SCAN_CU,
+     "src/repro/kernels/filter_project/kernel.py:57", "filter_scan"),
+    ("parse_i32", CSV_PARSE_CU,
+     "src/repro/kernels/filter_project/kernel.py:179", "parse_fields"),
+    ("decode_attention", DECODE_CU,
+     "src/repro/kernels/decode_attention/kernel.py:78", "decode_attention"),
+    ("flash_attention", FLASH_CU,
+     "src/repro/kernels/flash_attention/kernel.py:90", "flash_attention"))
+
+
+def sharded_phase(cuda, smi: str) -> dict:
+    """Phase M: M1, then M2-M4; returns the launches of the sharded
+    paths by kernel."""
+    launches = m_relational(cuda, smi)
+    launches.update(m_spmd(cuda, smi))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
-                                       "timings", "surfaces", "benches"),
+                                       "timings", "surfaces", "benches",
+                                       "sharded"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -3091,10 +3967,22 @@ def main(argv=None) -> int:
             cuda, smi, serve=args.only in (None, "serving"),
             families=args.only in (None, "families"),
             training=args.only in (None, "training")))
-    if surfaces is not None:
-        # the surfaces' card runs, beside the main path's count
+    sharded = None
+    if args.only in (None, "sharded"):
+        sharded = phase("sharded", lambda: sharded_phase(cuda, smi))
+    if args.only == "sharded":
+        # bring-up: the sharded path's launches alone, no timings
+        kernels = [dict(name=name, route="cuda", source=src, replaces=line,
+                        launches=sharded.get(counted, 0), path="sharded",
+                        launches_by_path={})
+                   for name, src, line, counted in M_KERNELS]
+    for name, key in (("surfaces", surfaces), ("sharded", sharded)):
+        if key is None:
+            continue
+        # the surfaces' card runs and the sharded paths, beside the main
+        # path's count
         for entry in kernels:
-            entry["launches_by_path"]["surfaces"] = surfaces.get(
+            entry["launches_by_path"][name] = key.get(
                 "parse_fields" if entry["name"] == "parse_i32"
                 else entry["name"], 0)
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -21,8 +21,15 @@ Properties (tested):
     writes the copy; ``wait()`` joins it and raises its error;
   * keep-k GC;
   * restore places each leaf on the device and in the dtype of the
-    tree it restores into.  Re-sharding onto a mesh (the JAX package's
-    ``shardings=``) waits for the multi-device port.
+    tree it restores into, or, with ``shardings=``, as a DTensor on the
+    mesh each leaf's NamedSharding names: a checkpoint saved by a world
+    of 4 restores onto a world of 2 (elastic rescale).
+
+A tree of DTensors (an SPMD rank's parameters) is saved in the JAX
+package's single-controller layout: every rank gathers each leaf's
+full tensor, rank 0 alone writes ``shard_0.npz``, and every rank waits
+at a barrier before the commit and after it, so ``save`` returns on
+every rank with the step committed.  That save is synchronous.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.common import named_leaves, tree_map
+from ..models.common import _is_dtensor, named_leaves, tree_map
 
 
 def _host_copy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -67,8 +74,12 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree, blocking: bool = False) -> None:
+        named = named_leaves(tree)
+        if any(_is_dtensor(v) for _, v in named):
+            self._save_spmd(step, named)
+            return
         # snapshot to host memory NOW: the caller updates in place next
-        leaves = [(k, *_host_copy(v)) for k, v in named_leaves(tree)]
+        leaves = [(k, *_host_copy(v)) for k, v in named]
         self.wait()
 
         def work():
@@ -83,10 +94,26 @@ class CheckpointManager:
         if blocking:
             self.wait()
 
-    def _write(self, step: int, leaves) -> None:
+    def _save_spmd(self, step: int, named) -> None:
+        """Every rank gathers the full leaves (a collective); rank 0
+        writes them; the commit sits between two barriers."""
+        import torch.distributed as dist
+
+        self.wait()
+        leaves = [(k, *_host_copy(v.full_tensor() if _is_dtensor(v) else v))
+                  for k, v in named]
+        writer = dist.get_rank() == 0
+        if writer:
+            self._write(step, leaves, commit=False)
+        dist.barrier()
+        if writer:
+            self._commit(step)
+            self._gc()
+        dist.barrier()
+
+    def _write(self, step: int, leaves, commit: bool = True) -> None:
         name = f"step_{step:08d}"
         tmp = os.path.join(self.dir, name + ".tmp")
-        final = os.path.join(self.dir, name)
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
@@ -103,6 +130,13 @@ class CheckpointManager:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
+        if commit:
+            self._commit(step)
+
+    def _commit(self, step: int) -> None:
+        name = f"step_{step:08d}"
+        tmp = os.path.join(self.dir, name + ".tmp")
+        final = os.path.join(self.dir, name)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)           # atomic commit
@@ -139,11 +173,15 @@ class CheckpointManager:
                               ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, like_tree, step: Optional[int] = None):
+    def restore(self, like_tree, step: Optional[int] = None,
+                shardings=None):
         """(step, tree): checkpoint ``step`` (default the latest) in the
-        structure of ``like_tree``, each leaf on the device and in the
-        dtype of ``like_tree``'s leaf, requiring grad where it does;
-        (None, None) when there is no checkpoint."""
+        structure of ``like_tree``, each leaf in the dtype of
+        ``like_tree``'s leaf, requiring grad where it does, and on its
+        device — or, with ``shardings`` (a matching tree of port
+        ``NamedSharding``s, or one for every leaf), distributed onto
+        the sharding's mesh from this SPMD rank; (None, None) when
+        there is no checkpoint."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -161,4 +199,7 @@ class CheckpointManager:
                 return t.requires_grad_(like.requires_grad)
 
             tree = tree_map(place, like_tree)
+        if shardings is not None:
+            from ..launch.sharding import device_put
+            tree = device_put(tree, shardings)
         return step, tree

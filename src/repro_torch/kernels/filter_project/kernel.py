@@ -53,11 +53,21 @@ _TYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 
 LAUNCHES = {"filter_scan": 0, "filter_scan_batch": 0, "parse_fields": 0,
             "parse_i32": 0, "parse_f32": 0}
+# the same launches by (wrapper name, device): a row-sharded scan
+# launches on every shard's card
+LAUNCHES_BY_DEVICE: Dict[Tuple[str, str], int] = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DEVICE.clear()
+
+
+def _count(name: str, dev: torch.device) -> None:
+    LAUNCHES[name] += 1
+    key = (name, str(dev))
+    LAUNCHES_BY_DEVICE[key] = LAUNCHES_BY_DEVICE.get(key, 0) + 1
 
 
 @dataclass(frozen=True)
@@ -414,7 +424,7 @@ def _launch(columns, enc: EncodedProgram, nrows: int, block: int,
             ic.data_ptr(), ic.shape[1], fc.data_ptr(), fc.shape[1], n_q)
             + shape + (queries,) + out)
     _check_launch(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, dev)
     return mask, counts
 
 
@@ -532,7 +542,7 @@ def _decode(raw: torch.Tensor, fields: Sequence[Tuple[int, int]],
             _plan_tensor(plan, dev).data_ptr(), len(plan.words),
             plan.period_rows, plan.period_words))
         _check_launch(rc, name)
-        LAUNCHES[name] += 1
+        _count(name, dev)
     return outs
 
 

@@ -12,9 +12,15 @@ leaves in f32: RMSNorm weights, which the norm reads in f32, and Mamba's
 JAX package casts them.  Training draws the same values in f32 as
 masters (``model.init_params(..., masters=True)``) and casts them to
 these storage dtypes at every step (``model.cast_params``).
+
+Under :func:`activation_sharding` (a context variable, as in the JAX
+package) :func:`constrain` redistributes DTensor activations of an SPMD
+rank to the placements the mesh's logical axes name.
 """
 from __future__ import annotations
 
+import contextvars
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -179,14 +185,99 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over (B, T, V) logits and (B, T) int labels, f32 math."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    if _is_dtensor(lf):
+        # vocab-sharded logits (vocab parallelism): the max, the sum of
+        # exponentials and the gold logit (a masked sum, exact: one
+        # nonzero term) each reduce over the vocab slices with one
+        # all-reduce, and the logits are never gathered
+        top = lf.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.exp(lf - top).sum(-1)) + top[..., 0]
+        vocab = torch.arange(lf.shape[-1], device=labels.device)
+        hit = (vocab == labels.long()[..., None]).to(lf.dtype)
+        gold = (lf * hit).sum(-1)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def shard_activation(x: torch.Tensor, spec, enabled: bool) -> torch.Tensor:
+    """``x`` redistributed to the port ``NamedSharding`` spec ``spec``
+    when ``enabled`` and ``x`` is a DTensor; ``x`` itself otherwise
+    (meshless execution)."""
+    if not enabled or not _is_dtensor(x):
+        return x
+    from ..launch.sharding import NamedSharding, placements
+
+    mesh = _ACT_CTX.get()["mesh"] if _ACT_CTX.get() else None
+    if mesh is None:
+        raise ValueError("shard_activation needs an activation_sharding "
+                         "context naming the mesh")
+    return x.redistribute(x.device_mesh,
+                          placements(NamedSharding(mesh, tuple(spec))))
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding context (constrains DTensor activations)
+# ---------------------------------------------------------------------------
+_ACT_CTX = contextvars.ContextVar("repro_torch_act_sharding", default=None)
+
+
+@contextmanager
+def activation_sharding(mesh, **logical_axes):
+    """Context: ``constrain(x, ("tokens", None))`` redistributes a
+    DTensor ``x`` to the placements of ``NamedSharding(mesh,
+    (axes["tokens"], None))`` — a no-op outside the context and on
+    plain tensors, so single-device paths are untouched.  ``mesh`` is a
+    port :class:`~repro_torch.launch.mesh.Mesh`.
+
+    logical_axes example: tokens=("pod","data"), experts="model",
+    model="model"; ``moe_ep=(token_axes, model_axis)`` routes MoE FFNs
+    through the expert-parallel ``ffn.moe_forward_ep``.
+    """
+    token = _ACT_CTX.set({"mesh": mesh, "axes": logical_axes})
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(token)
+
+
+def constrain(x: torch.Tensor, dims: Tuple[Optional[str], ...]
+              ) -> torch.Tensor:
+    """Constrain each dim to the mesh axes bound to its logical name."""
+    ctx = _ACT_CTX.get()
+    if ctx is None or not _is_dtensor(x):
+        return x
+    mesh = ctx["mesh"]
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    spec = []
+    used = set()
+    for dim, name in zip(x.shape, dims):
+        ax = ctx["axes"].get(name) if name else None
+        if ax is None:
+            spec.append(None)
+            continue
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if axes and dim % prod == 0:
+            spec.append(axes if len(axes) > 1 else axes[0])
+            used.update(axes)
+        else:
+            spec.append(None)
+    return shard_activation(x, spec, True)

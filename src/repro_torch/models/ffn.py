@@ -11,8 +11,12 @@ token's output does not depend on the order its entries were
 dispatched in, and a run repeats bit for bit on the card.  Shared
 experts (DeepSeek) are a fused dense SwiGLU of width
 n_shared * d_ff_expert.  Plain torch: no Pallas kernel computes the
-MoE in the JAX package either.  Its expert-parallel ``moe_forward_ep``
-(``shard_map``) waits for the multi-device item, ROADMAP A6.
+MoE in the JAX package either.
+
+On an SPMD rank, under ``activation_sharding(mesh, moe_ep=(token_axes,
+model_axis))``, :func:`ffn_forward` takes the expert-parallel
+:func:`moe_forward_ep`: each rank runs its E/m experts on its own
+tokens and one all-reduce over the model axis sums the partial outputs.
 """
 from __future__ import annotations
 
@@ -141,6 +145,108 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     return out.reshape(b, t, d)
 
 
+def _local(t: torch.Tensor, mesh_dims: Dict[str, int]):
+    """The rank's local tensor of DTensor ``t`` with its dim 0 sharded
+    over the mesh dims ``mesh_dims`` names (and every other dim
+    gathered), or ``t`` itself when it is a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
+    # a mesh dim of size 1 keeps its placement (nothing to move)
+    want = tuple(t.placements[i] if mesh.size(i) == 1
+                 else Shard(0) if names[i] in mesh_dims else Replicate()
+                 for i in range(mesh.ndim))
+    return t.redistribute(mesh, want).to_local()
+
+
+def moe_forward_ep(p, x: torch.Tensor, cfg: ArchConfig, dtype,
+                   mesh, token_axes, model_axis: str) -> torch.Tensor:
+    """Expert-parallel MoE (the JAX package's ``shard_map`` path).
+
+    Tokens stay batch-sharded over ``token_axes`` (replicated across
+    the model axis); experts are split over ``model_axis``.  Routing and
+    top-k are computed for each rank's tokens exactly as
+    :func:`moe_forward` routes them; the dispatch, the expert products
+    and the combine are shard-local, and the only collective is one
+    all-reduce of the (S_local, d) partial outputs over the model axis
+    (a DTensor ``Partial`` made ``Replicate``).  The combine keeps the
+    fixed order of terms: each rank sums its own entries' k choices in
+    choice order (foreign entries contribute zeros).  The capacity is
+    counted from the rank's S_local tokens, as in the JAX package.
+    ``x`` is a DTensor (B sharded over ``token_axes`` where it divides)
+    on the rank's DeviceMesh, and so are the weights.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    token_axes = (token_axes,) if isinstance(token_axes, str) \
+        else tuple(token_axes)
+    if not isinstance(x, DTensor):
+        raise TypeError("moe_forward_ep runs on an SPMD rank's DTensors")
+    dmesh = x.device_mesh
+    names = dmesh.mesh_dim_names
+    m = dmesh.size(names.index(model_axis))
+    e, k = cfg.n_experts, cfg.top_k
+    assert e % m == 0, (e, m)
+    e_loc = e // m
+    j = dmesh.get_local_rank(model_axis)
+    lo = j * e_loc
+
+    n_tok = 1
+    for a in token_axes:
+        n_tok *= dmesh.size(names.index(a))
+    split = x.shape[0] % n_tok == 0 and x.shape[0] > 1
+    x_l = _local(x, {a: 1 for a in token_axes} if split else {})
+    b_l, t, d = x_l.shape
+    s_l = b_l * t
+    xf = x_l.reshape(s_l, d)
+    r = route(cfg, xf @ _local(p["router"], {}).to(dtype))
+    w1, w3, w2 = (_local(p[n], {model_axis: 1}).to(dtype)
+                  for n in ("w1", "w3", "w2"))
+
+    # this rank's experts: foreign entries sort last (id e_loc) and drop
+    flat_e = r.top_idx.reshape(s_l * k)
+    mine = (flat_e >= lo) & (flat_e < lo + e_loc)
+    local_e = torch.where(mine, flat_e - lo, torch.full_like(flat_e, e_loc))
+    order = torch.argsort(local_e, stable=True)
+    se = local_e[order]
+    st = order // k
+    seg = torch.searchsorted(
+        se, torch.arange(e_loc + 1, device=xf.device, dtype=se.dtype),
+        side="left")
+    rank = torch.arange(s_l * k, device=xf.device) - seg[
+        torch.clamp(se, max=e_loc)]
+    keep = (se < e_loc) & (rank < r.capacity)
+    cap = r.capacity
+    slot = torch.where(keep, se * cap + rank,
+                       torch.full_like(rank, e_loc * cap))
+    keep_f = keep[:, None].to(dtype)
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=dtype, device=xf.device)
+    buf[slot] = xf[st] * keep_f
+    ein = buf[:-1].reshape(e_loc, cap, d)
+    h = F.silu(torch.bmm(ein, w1)) * torch.bmm(ein, w3)
+    oe = torch.bmm(h, w2).reshape(e_loc * cap, d)
+    g = oe[torch.clamp(slot, max=e_loc * cap - 1)] * keep_f
+    contrib = g * r.top_vals.reshape(s_l * k)[order][:, None].to(dtype)
+    out_l = combine(contrib, order, s_l, k)
+
+    token_dims = [names.index(a) for a in token_axes] if split else []
+    partial = tuple(Shard(0) if i in token_dims
+                    else Partial() if names[i] == model_axis
+                    else Replicate() for i in range(dmesh.ndim))
+    out = DTensor.from_local(out_l.reshape(b_l, t, d), dmesh, partial,
+                             run_check=False)
+    out = out.redistribute(dmesh, tuple(
+        Replicate() if isinstance(pl, Partial) else pl for pl in partial))
+    if cfg.n_shared_experts:
+        b = x.shape[0]
+        shared = dense_forward(p["shared"], x.reshape(b * t, d), dtype)
+        out = out + shared.reshape(b, t, d)
+    return out
+
+
 def ffn_specs(cfg: ArchConfig, kind: str) -> Dict[str, ParamSpec]:
     return moe_specs(cfg) if kind == "moe" else dense_specs(cfg)
 
@@ -148,5 +254,12 @@ def ffn_specs(cfg: ArchConfig, kind: str) -> Dict[str, ParamSpec]:
 def ffn_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str, dtype
                 ) -> torch.Tensor:
     if kind == "moe":
+        from .common import _ACT_CTX
+
+        ctx = _ACT_CTX.get()
+        if ctx is not None and ctx["axes"].get("moe_ep"):
+            token_axes, model_axis = ctx["axes"]["moe_ep"]
+            return moe_forward_ep(p, x, cfg, dtype, ctx["mesh"],
+                                  token_axes, model_axis)
         return moe_forward(p, x, cfg, dtype)
     return dense_forward(p, x, dtype)

@@ -3,17 +3,19 @@ and training's f32 masters with their per-step cast (:func:`cast_params`).
 
 Modality frontends (VLM patches / audio frames) are stubs as in the JAX
 package: precomputed (B, n_prefix, d_model) embeddings arrive as an
-input.  The dry-run stand-ins (``ShapeCell`` / ``input_specs``) wait
-for the launch tools (ROADMAP A6).
+input.  ``ShapeCell`` / ``SHAPES`` name the assignment's step shapes,
+which the sharding rules take; the dry-run stand-ins (``input_specs``)
+wait for the dry run (ROADMAP A6).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .common import (ParamSpec, ParamTree, cross_entropy,
+from .common import (ParamSpec, ParamTree, constrain, cross_entropy,
                      materialize_params, rmsnorm, rmsnorm_spec,
                      storage_dtype)
 from .config import ArchConfig
@@ -74,8 +76,10 @@ def cast_params(masters, cfg: ArchConfig) -> Dict:
 def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["unembed"]
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["unembed"]
+    return constrain(logits, ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +92,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     x = params["embed"][tokens]
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
+    x = constrain(x, ("batch", None, None))
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     x = decoder_forward(params["layers"], x, cfg, positions, dtype)
@@ -114,3 +119,29 @@ def decode_step(params, cache, token: torch.Tensor, cur_len: int,
     x, cache = decoder_decode_step(params["layers"], cache, x, int(cur_len),
                                    cfg, dtype)
     return _logits(params, x, cfg)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# the assignment's step shapes
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    step: str                 # "train" | "prefill" | "decode"
+
+
+SHAPES = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_shape(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

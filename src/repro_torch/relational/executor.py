@@ -19,7 +19,9 @@ shims so existing call sites keep working.
 
 Device: a Session runs on ``cuda`` unless constructed with
 ``device="cpu"`` (or another torch device); without a GPU the default
-raises RuntimeError.
+raises RuntimeError.  With ``ExecutionConfig.sharding`` (a port
+``NamedSharding`` over one mesh axis) its scans are row-sharded over
+that axis's devices and it runs on the first of them.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ from .canonical import subsumption_residual
 from .observe import Telemetry
 from .partition import Partitioning, linear_scan_chain, partition_table
 from .fuse import unfuse_plan
-from .physical import ExecContext, ExecMetrics, TableStorage, execute
+from .physical import (ExecContext, ExecMetrics, TableStorage, execute,
+                       first_shard_device, shard_devices)
 from .rules import optimize_single
 from .schema import Table
 from .service import QueryService, SessionConfig
@@ -181,10 +184,13 @@ class Session:
             config = SessionConfig.from_legacy_kwargs(**passed)
         self.config = config
         ex, mem = config.execution, config.memory
+        # every scan, CE and result of this session lives here; a
+        # row-sharded session places scan shards on its mesh axis's
+        # devices and runs everything past the scans on the first one
         if ex.sharding is not None:
-            raise NotImplementedError(
-                "sharded scans (shard_map route) are not ported")
-        # every scan, CE and result of this session lives here
+            shard_devices(ex.sharding)          # TypeError if unsupported
+            if device is None:
+                device = first_shard_device(ex.sharding)
         self.device = resolve_device(device)
 
         self.catalog: Dict[str, TableStorage] = {}

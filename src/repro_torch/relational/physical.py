@@ -22,8 +22,17 @@ Two execution paths (see ROADMAP.md "Execution paths"):
     (a cumsum + scatter in place of ``jnp.nonzero(size=...)``), so the
     count read stays the pipeline's one host sync.
 
-The ``shard_map`` route of the JAX package is not ported: a context
-with a ``sharding`` raises NotImplementedError.
+Row sharding (the JAX package's ``shard_map`` route, one controller):
+with ``sharding`` a port ``NamedSharding`` over one mesh axis, a scan's
+padded capacity splits evenly over the axis's devices (shard ``j`` of
+``n`` holds rows ``[j·cap/n, (j+1)·cap/n)`` on its device, a
+:class:`RowShards`), CSV shards are decoded on their own devices, each
+shard computes its own predicate mask through the filter kernels, and
+the compacted shards are concatenated in shard order on the first
+device, where every downstream operator runs.  A capacity the shard
+count does not divide takes the single-device path.  The mask routes
+and the compaction take a list of shards, and a relation on one device
+is one shard, so both paths run the same code.
 
 Storage formats (the paper's CSV vs Parquet axis):
   * ``csv``      — the table lives on "disk" (host memory) as one
@@ -148,8 +157,10 @@ class ExecContext:
     metrics: ExecMetrics = field(default_factory=ExecMetrics)
     # the device every scan puts its columns on (None -> cuda)
     device: Optional[torch.device] = None
-    # multi-device row sharding: not ported (must stay None)
+    # multi-device row sharding: a port NamedSharding over one mesh axis
+    # (see shard_devices); ``shards`` is the resolved device list
     sharding: Optional[object] = None
+    shards: Optional[List[torch.device]] = None
     # emulate slow disk: per-byte sleep (used by benchmarks to model I/O)
     disk_latency_per_byte: float = 0.0
     # also route predicates that fall off the slotted program through
@@ -220,10 +231,15 @@ class ExecContext:
     telemetry: Optional[object] = None
 
     def __post_init__(self):
+        self.shards = shard_devices(self.sharding)
+        if self.device is None and self.sharding is not None:
+            self.device = first_shard_device(self.sharding)
         self.device = resolve_device(self.device)
-        if self.sharding is not None:
-            raise NotImplementedError(
-                "sharded scans (shard_map route) are not ported")
+        if self.sharding is not None and \
+                self.device != first_shard_device(self.sharding):
+            raise ValueError(
+                f"a sharded context runs on its mesh's first device "
+                f"{first_shard_device(self.sharding)}, not {self.device}")
 
     def check_fault(self, point: str, key=None) -> None:
         if self.faults is not None:
@@ -295,6 +311,99 @@ class ExecContext:
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
+def _axis_devices(sharding) -> List[torch.device]:
+    """The devices along the sharding's one spec axis, in shard order
+    (the first position of every other mesh axis)."""
+    from ..launch.sharding import NamedSharding
+
+    spec = sharding.spec if isinstance(sharding, NamedSharding) else None
+    if spec is not None and len(spec) == 1 and isinstance(spec[0], tuple) \
+            and len(spec[0]) == 1:
+        spec = (spec[0][0],)
+    if spec is None or len(spec) != 1 or not isinstance(spec[0], str) \
+            or spec[0] not in sharding.mesh.axis_names:
+        raise TypeError(
+            f"ExecutionConfig.sharding takes a repro_torch.launch.sharding."
+            f"NamedSharding over one mesh axis, e.g. NamedSharding(mesh, "
+            f"('data',)); got {sharding!r}")
+    mesh = sharding.mesh
+    devs = np.moveaxis(mesh.devices, mesh.axis_names.index(spec[0]), 0)
+    return list(devs.reshape(devs.shape[0], -1)[:, 0])
+
+
+def shard_devices(sharding) -> Optional[List[torch.device]]:
+    """The shard devices of a row sharding, or None for the single-
+    device path (no sharding, or one shard).  Raises TypeError for
+    anything but a port NamedSharding with a one-axis spec."""
+    if sharding is None:
+        return None
+    devs = _axis_devices(sharding)
+    return devs if len(devs) > 1 else None
+
+
+def first_shard_device(sharding) -> torch.device:
+    """The device a sharded session's downstream operators run on."""
+    return _axis_devices(sharding)[0]
+
+
+class RowShards:
+    """A column split by rows over a mesh axis: ``shards[j]`` holds rows
+    ``[j·n_local, (j+1)·n_local)`` on its own device.  Shape, dtype and
+    byte counts are the GLOBAL column's, as a sharded ``jax.Array``'s
+    are, so pool books and MQO decisions equal the single-device
+    session's."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards: List[torch.Tensor]):
+        self.shards = list(shards)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        first = self.shards[0]
+        return (first.shape[0] * len(self.shards),) + tuple(first.shape[1:])
+
+    @property
+    def ndim(self) -> int:
+        return self.shards[0].ndim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    def numel(self) -> int:
+        return sum(s.numel() for s in self.shards)
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    def map(self, fn) -> "RowShards":
+        return RowShards([fn(s) for s in self.shards])
+
+    def gather(self) -> torch.Tensor:
+        """The whole column on the first shard's device."""
+        dev = self.device
+        return torch.cat([s.to(dev) for s in self.shards], 0)
+
+
+def _is_sharded(table: "Table") -> bool:
+    return any(isinstance(c, RowShards) for c in table.columns.values())
+
+
+def _gathered(table: "Table") -> "Table":
+    """``table`` with every RowShards column concatenated on the first
+    shard's device (the operators past a scan take whole columns)."""
+    if not _is_sharded(table):
+        return table
+    return Table(table.schema, {n: c.gather()
+                                for n, c in table.columns.items()},
+                 table.nrows)
+
+
 def _parse_fields(raw: torch.Tensor, fields) -> List[torch.Tensor]:
     """Fields ``(byte offset, width)`` of the raw CSV rows, decoded in
     one pass (width 10 -> int32, width 8 -> float32): one launch of the
@@ -308,18 +417,30 @@ def _csv_columns(raw: torch.Tensor, schema, needed: Tuple[str, ...],
                  nrows: int, ctx: "ExecContext") -> Dict[str, torch.Tensor]:
     """The ``needed`` columns of a CSV scan's raw rows: every numeric
     field decoded by ONE ``_parse_fields`` call, string fields the raw
-    byte slice."""
+    byte slice.  Row-sharded raw bytes are decoded shard by shard, each
+    by one call on its own device."""
     offsets = schema.csv_offsets()
     numeric = [n for n in needed
                if schema.coltype(n).kind in ("i32", "f32")]
-    decoded = dict(zip(numeric, _parse_fields(
-        raw, [offsets[n] for n in numeric]))) if numeric else {}
+    fields = [offsets[n] for n in numeric]
+    if isinstance(raw, RowShards):
+        per_shard = [_parse_fields(r, fields) for r in raw.shards] \
+            if numeric else []
+        decoded = {n: RowShards([d[i] for d in per_shard])
+                   for i, n in enumerate(numeric)}
+    else:
+        decoded = dict(zip(numeric, _parse_fields(raw, fields))) \
+            if numeric else {}
     cols: Dict[str, torch.Tensor] = {}
     for name in needed:
         off, w = offsets[name]
         ctx.metrics.bytes_parsed += nrows * w
-        cols[name] = decoded[name] if name in decoded \
-            else raw[:, off:off + w]
+        if name in decoded:
+            cols[name] = decoded[name]
+        elif isinstance(raw, RowShards):
+            cols[name] = raw.map(lambda r, a=off, b=off + w: r[:, a:b])
+        else:
+            cols[name] = raw[:, off:off + w]
     return cols
 
 
@@ -526,7 +647,24 @@ def _device_put(arr: np.ndarray, ctx: ExecContext,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A copy of a host array on the context's device, cast to the
     column's ``dtype`` (host arrays may be wider, e.g. f64 for an f32
-    column, which ``jnp.asarray`` narrows the same way)."""
+    column, which ``jnp.asarray`` narrows the same way).  A sharded
+    context splits the rows evenly over its shard devices (a
+    :class:`RowShards`, one ``scan_h2d`` fault point and span per
+    shard) when the shard count divides them, as ``jax.device_put``
+    onto a NamedSharding does; otherwise the copy goes to the first
+    device."""
+    shards = ctx.shards
+    if shards and arr.ndim >= 1 and arr.shape[0] % len(shards) == 0:
+        n_local = arr.shape[0] // len(shards)
+        return RowShards([
+            _put_one(arr[j * n_local:(j + 1) * n_local], ctx, dtype, dev)
+            for j, dev in enumerate(shards)])
+    return _put_one(arr, ctx, dtype, ctx.device)
+
+
+def _put_one(arr: np.ndarray, ctx: ExecContext,
+             dtype: Optional[torch.dtype],
+             device: torch.device) -> torch.Tensor:
     ctx.check_fault("scan_h2d")
     with ctx.span("scan.h2d", nbytes=int(arr.nbytes)):
         if ctx.disk_latency_per_byte:
@@ -534,9 +672,9 @@ def _device_put(arr: np.ndarray, ctx: ExecContext,
         host = torch.from_numpy(np.ascontiguousarray(arr))
         if dtype is not None and host.dtype != dtype:
             host = host.to(dtype)
-        elif ctx.device.type == "cpu":
+        elif device.type == "cpu":
             return host.clone()
-        return host.to(ctx.device)
+        return host.to(device)
 
 
 def _pad_rows(arr: np.ndarray, cap: int) -> np.ndarray:
@@ -665,6 +803,10 @@ def _exec_scan_partitioned(node: L.Scan, st: TableStorage,
     (ascending partition id, so the result is the unpruned relation
     with non-selected partitions' rows deleted, order preserved).
 
+    With a sharded context the selected ranges are assembled host-side
+    and placed split over the shard devices; the assembled array is
+    memoized per partition SET, trading cross-prune-set reuse for
+    single-placement scans (the JAX package's sharded-scan caveat).
     """
     parts = node.parts if node.parts is not None else info.all_parts()
     nrows = info.rows_of(parts)
@@ -674,15 +816,41 @@ def _exec_scan_partitioned(node: L.Scan, st: TableStorage,
         return Table(schema, empty_like(schema, cap, ctx.device), 0)
     ranges = [info.part_range(p) for p in parts]
     cols: Dict[str, torch.Tensor] = {}
+
+    def host_assembly(arr: np.ndarray):
+        """Lazy host-side concat of the selected ranges (runs only on
+        a scan-cache miss — warm sharded scans skip the memcpy) plus
+        the live byte count for hit metrics."""
+        if len(parts) == info.n_partitions:
+            return (lambda: arr), arr.nbytes
+        row_bytes = arr.nbytes // max(arr.shape[0], 1)
+        live = sum(hi - lo for lo, hi in ranges)
+        return (lambda: np.concatenate(
+            [arr[lo:hi] for lo, hi in ranges if hi > lo], 0)), \
+            row_bytes * live
+
+    sharded = ctx.shards is not None
     if st.fmt == "csv":
-        raw = _parts_assembled(ctx, st, "__csv__", st.csv_bytes,
-                               parts, ranges, cap)
+        if sharded:
+            build, live_bytes = host_assembly(st.csv_bytes)
+            raw = _scan_cached(ctx, (st.name, "__csv__", parts), build,
+                               cap, host_nbytes=live_bytes)
+        else:
+            raw = _parts_assembled(ctx, st, "__csv__", st.csv_bytes,
+                                   parts, ranges, cap)
         cols = _csv_columns(raw, st.schema, needed, nrows, ctx)
     else:
         for name in needed:
-            cols[name] = _parts_assembled(
-                ctx, st, name, st.columnar[name], parts, ranges, cap,
-                torch_dtype(st.schema.coltype(name)))
+            dtype = torch_dtype(st.schema.coltype(name))
+            if sharded:
+                build, live_bytes = host_assembly(st.columnar[name])
+                cols[name] = _scan_cached(
+                    ctx, (st.name, name, parts), build, cap,
+                    host_nbytes=live_bytes, dtype=dtype)
+            else:
+                cols[name] = _parts_assembled(
+                    ctx, st, name, st.columnar[name], parts, ranges, cap,
+                    dtype)
     return Table(schema, cols, nrows)
 
 
@@ -940,37 +1108,191 @@ def _try_pallas_filter(pred: E.Expr, child: Table):
     numeric col-col compares and fractional thresholds on integer
     columns compile — see kernels.filter_project.ops.compile_predicate).
     Only the predicate's own columns go to the kernel."""
-    from ..kernels.filter_project.ops import compile_predicate, filter_mask
+    compiled = _literal_compile(pred, child.schema)
+    if compiled is None:
+        return None, None
+    program, numeric = compiled
+    return _literal_mask(program, [child.columns[n] for n in numeric],
+                         child.nrows)
+
+
+def _literal_compile(pred: E.Expr, schema):
+    """(literal program, its numeric columns) or None when the kernel
+    program cannot express ``pred``."""
+    from ..kernels.filter_project.ops import compile_predicate
 
     pcols = E.columns_of(pred)
-    numeric = tuple(n for n, t in child.schema.fields
+    numeric = tuple(n for n, t in schema.fields
                     if n in pcols and t.kind in ("i32", "i64", "f32"))
     try:
         program = compile_predicate(pred, numeric)
     except (ValueError, KeyError):
-        return None, None
+        return None
     if not numeric:
-        return None, None
-    cols = tuple(child.columns[n] for n in numeric)
-    block = min(2048, child.capacity)
-    mask, counts = filter_mask(cols, program, child.nrows, block=block)
+        return None
+    return program, numeric
+
+
+def _literal_mask(program, cols, nrows: int):
+    """(mask, count) of one ``filter_scan`` launch over ``cols``."""
+    from ..kernels.filter_project.ops import filter_mask
+
+    block = min(2048, int(cols[0].shape[0]))
+    mask, counts = filter_mask(tuple(cols), program, nrows, block=block)
     return mask, counts.sum()
+
+
+# ---------------------------------------------------------------------------
+# predicate masks, per shard: a single-device relation is one shard
+# ---------------------------------------------------------------------------
+class _ShardMask:
+    """Per-shard predicate masks and counts: each shard's mask covers
+    its own rows and lives on its device.  A relation on one device is
+    one shard."""
+
+    __slots__ = ("masks", "counts")
+
+    def __init__(self, masks, counts):
+        self.masks, self.counts = list(masks), list(counts)
+
+    def count(self) -> torch.Tensor:
+        """The total count on the first shard's device (no host read)."""
+        if len(self.counts) == 1:
+            return self.counts[0]
+        dev = self.masks[0].device
+        return torch.stack([c.to(dev, torch.int64)
+                            for c in self.counts]).sum()
+
+    def gather(self) -> torch.Tensor:
+        if len(self.masks) == 1:
+            return self.masks[0]
+        dev = self.masks[0].device
+        return torch.cat([m.to(dev) for m in self.masks], 0)
+
+
+def _n_shards(child: "Table") -> int:
+    for c in child.columns.values():
+        if isinstance(c, RowShards):
+            return len(c.shards)
+    return 1
+
+
+def _shard_live(child: "Table") -> List[int]:
+    """Live rows of each shard: global row ``< nrows``."""
+    n = _n_shards(child)
+    n_local = child.capacity // n
+    return [min(max(child.nrows - j * n_local, 0), n_local)
+            for j in range(n)]
+
+
+def _shard_cols(child: "Table", names) -> List[tuple]:
+    """The columns ``names`` of each shard, in shard order."""
+    if _n_shards(child) == 1:
+        return [tuple(child.columns[n] for n in names)]
+    return [tuple(child.columns[n].shards[j] for n in names)
+            for j in range(_n_shards(child))]
+
+
+def _encoded(ctx: ExecContext, program, names, n_q: int, shard_cols,
+             capacity: int, block: int):
+    """The kernel encoding of a slotted program for every shard's
+    device, cached under ONE plan-shape key (so ``trace_hits`` /
+    ``trace_misses`` count alike for a sharded and a single-device
+    run)."""
+    from ..kernels.filter_project.kernel import encode_program
+
+    dtypes = tuple(c.dtype for c in shard_cols[0])
+    devs = [cols[0].device for cols in shard_cols]
+    key = ("slotmask", program, names, n_q, capacity, block,
+           tuple(str(d) for d in dtypes), tuple(str(d) for d in devs))
+    encs = _shape_cached(ctx, key, lambda: {
+        str(d): encode_program(program, dtypes, d)
+        for d in dict.fromkeys(devs)})
+    return [encs[str(d)] for d in devs]
+
+
+def _batch_masks(ctx: ExecContext, child: "Table", program, names,
+                 ivals_rows, fvals_rows):
+    """One ``filter_scan_batch`` launch per shard over the slotted
+    program with ``len(ivals_rows)`` literal rows: per shard a
+    ((n_q, n_local) mask, (n_q, blocks) counts) pair.  The kernel
+    encoding is keyed by plan shape (literals live in operand arrays),
+    so recurring templates with fresh constants reuse it.  Every
+    shard's launch is issued before anything is read back."""
+    from ..kernels.filter_project.ops import filter_mask_batch, pack_consts
+
+    shard_cols = _shard_cols(child, names)
+    block = min(2048, int(shard_cols[0][0].shape[0]))
+    ic, fc = pack_consts(ivals_rows, fvals_rows)
+    encs = _encoded(ctx, program, names, len(ivals_rows), shard_cols,
+                    child.capacity, block)
+    return [filter_mask_batch(cols, program, nr, ic, fc, block=block,
+                              encoded=enc)
+            for cols, nr, enc in zip(shard_cols, _shard_live(child), encs)]
+
+
+def _route_mask(pred: E.Expr, child: "Table", ctx: ExecContext
+                ) -> _ShardMask:
+    """The predicate's mask and count, each shard evaluating its own
+    rows on its device, by the first route that takes ``pred``: the
+    slotted program (``filter_scan_batch``; a batch of one, so bit-
+    identical to a window-batched dispatch of the same plan) when the
+    shape cache is on, whatever ``use_pallas_filter`` says; then the
+    literal program (``filter_scan``) on the card or with
+    ``use_pallas_filter``, for what the slotted compile rejects or for
+    every predicate when the shape cache is off; then the torch
+    expression evaluator."""
+    if ctx.shape_cache:
+        compiled = _slot_compile(pred, child.schema)
+        if compiled is not None:
+            program, ivals, fvals, names = compiled
+            out = _batch_masks(ctx, child, program, names, [ivals], [fvals])
+            return _ShardMask([m[0] for m, _ in out],
+                              [c.sum() for _, c in out])
+    live = _shard_live(child)
+    if ctx.use_pallas_filter or on_card(ctx.device):
+        compiled = _literal_compile(pred, child.schema)
+        if compiled is not None:
+            program, numeric = compiled
+            out = [_literal_mask(program, cols, nr)
+                   for cols, nr in zip(_shard_cols(child, numeric), live)]
+            return _ShardMask([m for m, _ in out], [c for _, c in out])
+    names = child.schema.names
+    out = [_pred_mask(pred, names, nr, cols)
+           for cols, nr in zip(_shard_cols(child, names), live)]
+    return _ShardMask([m for m, _ in out], [c for _, c in out])
+
+
+def _compact_masked(mask: _ShardMask, new_cap: int, *cols):
+    """``_compact_nz`` per shard: each shard compacts its own selected
+    rows on its device, and the pieces are placed in shard order on the
+    first device — the same rows in the same order as the single-device
+    compaction, fill rows repeating global row 0 — with no host read
+    (the shard counts stay on the device)."""
+    if len(mask.masks) == 1:
+        return _compact_nz(mask.masks[0], new_cap, *cols)
+    dev = mask.masks[0].device
+    n = len(mask.masks)
+    lcap = min(new_cap, int(mask.masks[0].shape[0]))
+    sels = [_nonzero_static(m, lcap) for m in mask.masks]
+    counts = torch.stack([c.to(dev, torch.int64) for c in mask.counts])
+    ends = torch.cumsum(counts, 0)
+    pos = _arange(new_cap, dev)
+    shard = torch.searchsorted(ends, pos, right=True)
+    sc = torch.clamp(shard, max=n - 1)
+    flat = torch.where(shard < n, sc * lcap + pos - (ends - counts)[sc],
+                       torch.full_like(pos, n * lcap))
+    out = []
+    for c in cols:
+        pieces = [_take(sh, sel).to(dev) for sh, sel in zip(c.shards, sels)]
+        pieces.append(c.shards[0][:1])
+        out.append(_take(torch.cat(pieces, 0), flat))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
 # fused pipelines (relational.fuse): leaf → Filter* → Project in ONE pass
 # ---------------------------------------------------------------------------
-def _fused_select(pred: E.Expr, in_names: Tuple[str, ...],
-                  out_cols: Tuple[str, ...], new_cap: int, nrows: int,
-                  cols):
-    """mask + count + compact + project through the torch expression
-    evaluator (predicates the kernel program cannot express)."""
-    columns = dict(zip(in_names, cols))
-    mask, count = _pred_mask(pred, in_names, nrows, cols)
-    sel = _nonzero_static(mask, new_cap)
-    return mask, count, tuple(_take(columns[c], sel) for c in out_cols)
-
-
 def _slot_compile(pred: E.Expr, schema):
     """Slotted compile of ``pred`` over the schema's numeric predicate
     columns.  Returns (program, ivals, fvals, names) or None when the
@@ -989,42 +1311,6 @@ def _slot_compile(pred: E.Expr, schema):
     except (ValueError, KeyError):
         return None
     return program, ivals, fvals, names
-
-
-def _encoded(ctx: ExecContext, program, names, n_q: int, cols,
-             capacity: int, block: int):
-    """The plan-shape cached kernel encoding of a slotted program."""
-    from ..kernels.filter_project.kernel import encode_program
-
-    dtypes = tuple(c.dtype for c in cols)
-    dev = cols[0].device
-    key = ("slotmask", program, names, n_q, capacity, block,
-           tuple(str(d) for d in dtypes), str(dev))
-    return _shape_cached(ctx, key,
-                         lambda: encode_program(program, dtypes, dev))
-
-
-def _slotted_mask(pred: E.Expr, child: Table, ctx: ExecContext):
-    """Per-query mask+count through the SLOTTED program route: the
-    kernel encoding is keyed by plan shape (literals live in operand
-    arrays), so recurring templates with fresh constants reuse it.
-    This is exactly a batch of one — bit-identical to a window-batched
-    dispatch of the same plan — and on CUDA tensors it launches the
-    ``filter_scan_batch`` kernel.  Returns (mask, count) or
-    (None, None)."""
-    from ..kernels.filter_project.ops import filter_mask_batch, pack_consts
-
-    compiled = _slot_compile(pred, child.schema)
-    if compiled is None:
-        return None, None
-    program, ivals, fvals, names = compiled
-    ic, fc = pack_consts([ivals], [fvals])
-    block = min(2048, child.capacity)
-    cols = tuple(child.columns[n] for n in names)
-    enc = _encoded(ctx, program, names, 1, cols, child.capacity, block)
-    mask, counts = filter_mask_batch(cols, program, child.nrows, ic, fc,
-                                     block=block, encoded=enc)
-    return mask[0], counts.sum()
 
 
 def _fused_est(src, pred: E.Expr, child: Table, est_rows: Optional[int],
@@ -1135,7 +1421,7 @@ def _pid_record(ctx: ExecContext, pid_scan, pred: E.Expr, mask,
         key = E.canonical(pred)
         if pool.contains(table_name, key):
             return
-        host = mask[:nrows].cpu().numpy()
+        host = mask.gather()[:nrows].cpu().numpy()
         present = pid_presence_from_mask(host, info, parts)
         pool.record(table_name, key, pred, info.n_partitions, present)
         ctx.metrics.pid_records += 1
@@ -1169,59 +1455,29 @@ def _exec_fused(node: FusedPipeline, ctx: ExecContext) -> Table:
                               if n in need and table.schema.has(n)])
 
     if isinstance(pred, E.TrueExpr):
-        return child.select(node.cols)
-
-    in_names = child.schema.names
-    in_cols = [child.columns[n] for n in in_names]
+        return _gathered(child.select(node.cols))
     est = _fused_est(src, pred, child, est_rows, ctx)
-    out_schema = node.schema
-
-    mask = count = None
-    if ctx.shape_cache:
-        # the kernel computes mask+count; only the data-dependent-shape
-        # compaction stays in torch (see kernels.filter_project.kernel).
-        # Shape-cached slotted program first (no re-encode on fresh
-        # literals) — whatever use_pallas_filter says, the slotted route
-        # launches filter_scan_batch on CUDA tensors
-        mask, count = _slotted_mask(pred, child, ctx)
-    if mask is None and (ctx.use_pallas_filter or on_card(ctx.device)):
-        # literal program (filter_scan) for what the slotted compile
-        # rejects, or for every predicate when shape_cache is off; on
-        # the card whatever use_pallas_filter says
-        mask, count = _try_pallas_filter(pred, child)
+    # the kernels compute mask+count (per shard of a row-sharded scan);
+    # only the data-dependent-shape compaction stays in torch (see
+    # kernels.filter_project.kernel)
+    mask = _route_mask(pred, child, ctx)
 
     def project_compact(new_cap: int):
-        return _compact_nz(mask, new_cap,
-                           *[child.columns[c] for c in node.cols])
+        # only the output columns are ever compacted
+        return _compact_masked(mask, new_cap,
+                               *[child.columns[c] for c in node.cols])
 
-    if mask is not None:
-        if est is not None:
-            outs, count = _deferred_dispatch(
-                project_compact, est, child.capacity, count)
-        else:
-            count = int(count)
-            outs = project_compact(next_pow2(max(count, 1)))
-    elif est is not None:
-        # one pass: mask, count and the projected compaction all come
-        # out before the count is read, sized by the estimate
-        new_cap = _est_cap(est, child.capacity)
-        mask, count, outs = _fused_select(pred, in_names, node.cols,
-                                          new_cap, child.nrows, in_cols)
-        count = int(count)
-        tight = next_pow2(max(count, 1))
-        if count > new_cap or new_cap > 2 * tight:
-            # estimate overflow (or gross overshoot): recompact exactly
-            outs = project_compact(tight)
+    if est is not None:
+        # one pass: the projected compaction is dispatched, sized by the
+        # estimate, before the count is read
+        outs, count = _deferred_dispatch(project_compact, est,
+                                         child.capacity, mask.count())
     else:
-        # no estimator: two passes, but still no intermediate relation
-        # — only the output columns are ever compacted
-        mask, count = _pred_mask(pred, in_names, child.nrows, in_cols)
-        count = int(count)
+        count = int(mask.count())
         outs = project_compact(next_pow2(max(count, 1)))
-
     _pid_record(ctx, pid_scan, pred, mask, child.nrows)
     ctx.metrics.rows_processed += child.nrows
-    return Table(out_schema, dict(zip(node.cols, outs)), count)
+    return Table(node.schema, dict(zip(node.cols, outs)), count)
 
 
 # ---------------------------------------------------------------------------
@@ -1316,8 +1572,6 @@ def plan_window_batches(plans, ctx: ExecContext):
 def _prepare_group(members, ctx: ExecContext):
     """Phase one of a group: per-member scans + the ONE batched
     mask/count launch (async — nothing here blocks on the device)."""
-    from ..kernels.filter_project.ops import filter_mask_batch, pack_consts
-
     children = []
     for m in members:
         src = m.src
@@ -1333,44 +1587,40 @@ def _prepare_group(members, ctx: ExecContext):
     for ch in children[1:]:
         if ch.capacity != base.capacity or ch.nrows != base.nrows:
             raise GroupDiverged("window-batch group children diverge")
-    names = members[0].pred_names
     # predicate columns come from the FIRST member's child — same leaf,
-    # same device buffers (scan cache), so no member pays a second scan
-    cols = tuple(base.columns[n] for n in names)
-    # pad the member dimension to a power of two so realized group
-    # sizes bucket into few compile shapes (a serving window closes
-    # with whatever arrived — without padding every distinct size
-    # recompiles the batch kernel).  Padded rows duplicate member 0's
-    # literals; their mask/count rows are never read, and real members'
-    # rows are computed independently of them (bit-identical).
+    # same device buffers (scan cache), so no member pays a second scan.
+    # Pad the member dimension to a power of two so realized group sizes
+    # bucket into few compile shapes (a serving window closes with
+    # whatever arrived — without padding every distinct size recompiles
+    # the batch kernel).  Padded rows duplicate member 0's literals;
+    # their mask/count rows are never read, and real members' rows are
+    # computed independently of them (bit-identical).  A row-sharded
+    # child takes one launch per shard for the whole group.
     n_pad = next_pow2(len(members))
     fill = [members[0]] * (n_pad - len(members))
-    ic, fc = pack_consts([m.ivals for m in members + fill],
-                         [m.fvals for m in members + fill])
-    block = min(2048, base.capacity)
-    program = members[0].program
-    enc = _encoded(ctx, program, names, n_pad, cols, base.capacity, block)
-    mask, counts = filter_mask_batch(cols, program, base.nrows, ic, fc,
-                                     block=block, encoded=enc)
+    out = _batch_masks(ctx, base, members[0].program, members[0].pred_names,
+                       [m.ivals for m in members + fill],
+                       [m.fvals for m in members + fill])
     ctx.metrics.batched_dispatches += 1
     ctx.metrics.batched_queries += len(members)
-    return children, mask, counts
+    return children, out
 
 
 def _finalize_group(members, prep, ctx: ExecContext):
     """Phase two: blocking count reads + per-member deferred-sync
     compactions (identical sizing to the solo ``_exec_fused`` path, so
     batched results are bit-identical to per-query dispatch)."""
-    children, mask, counts = prep
+    children, out = prep
     outs = []
     for q, (m, child) in enumerate(zip(members, children)):
         est = _fused_est(m.src, m.node.pred, child, m.est_rows, ctx)
-        mrow = mask[q]
-        crow = counts[q].sum()
+        mrow = _ShardMask([mk[q] for mk, _ in out],
+                          [ct[q].sum() for _, ct in out])
+        crow = mrow.count()
 
         def project_compact(new_cap, mrow=mrow, child=child, m=m):
-            return _compact_nz(mrow, new_cap,
-                               *[child.columns[c] for c in m.node.cols])
+            return _compact_masked(mrow, new_cap,
+                                   *[child.columns[c] for c in m.node.cols])
 
         if est is not None:
             cols_out, count = _deferred_dispatch(
@@ -1459,7 +1709,7 @@ def _exec(node: L.Node, ctx: ExecContext, req) -> Table:
     elif isinstance(node, L.Scan):
         needed = req.get(id(node), frozenset(node.schema.names))
         ordered = tuple(n for n in node.schema.names if n in needed)
-        out = _exec_scan(node, ctx, ordered)
+        out = _gathered(_exec_scan(node, ctx, ordered))
     elif isinstance(node, L.CachedScan):
         out = _exec_cached_scan(node, ctx, req)
     elif isinstance(node, L.Filter):

@@ -128,7 +128,9 @@ class ExecutionConfig:
     # to prune by observed history ON TOP of the stats pruner.  False
     # disables both recording and lookup (stats-only pruning).
     pid_cache: bool = True
-    sharding: Optional[Any] = None          # jax.sharding.Sharding
+    # row sharding of scans: a launch.sharding.NamedSharding with a
+    # one-axis spec, e.g. NamedSharding(mesh, ("data",))
+    sharding: Optional[Any] = None
     disk_latency_per_byte: float = 0.0
 
 

@@ -35,7 +35,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "repro_torch.kernels.decode_attention.ops, "
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.launch.roofline, repro_torch.launch.serve, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad)")
@@ -124,9 +125,21 @@ def test_cpu_is_used_when_asked():
 
 
 def test_sharded_route_is_not_ported():
-    cfg = SessionConfig().with_execution(sharding=object())
-    with pytest.raises(NotImplementedError):
-        Session.from_config(cfg, device="cpu")
+    """The row-sharded route takes only the port's own NamedSharding
+    over one mesh axis; anything else (an arbitrary object, a two-axis
+    spec, a JAX sharding) is refused with a TypeError naming it."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import NamedSharding
+
+    mesh = make_test_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    import jax
+
+    jax_sharding = jax.sharding.SingleDeviceSharding(jax.devices("cpu")[0])
+    for bad in (object(), NamedSharding(mesh, ("data", "model")),
+                jax_sharding):
+        cfg = SessionConfig().with_execution(sharding=bad)
+        with pytest.raises(TypeError, match="NamedSharding"):
+            Session.from_config(cfg, device="cpu")
 
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu_tensors():

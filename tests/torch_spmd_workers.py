@@ -1,0 +1,221 @@
+"""Rank functions of the port's SPMD tests (not a test module).
+
+Each function runs on every rank of a world that
+``repro_torch.launch.mesh.spawn`` starts (gloo on CPU positions), and
+returns host values (numpy arrays, floats) to the test, which holds
+them against the JAX package.  The module imports torch and the port
+only: spawned ranks import it, and never JAX.
+"""
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import (data_axes, device_mesh,
+                                     gloo_collectives_over_all_reduce)
+from repro_torch.launch.sharding import (NamedSharding, batch_shardings,
+                                         device_put, opt_state_shardings,
+                                         param_shardings)
+from repro_torch.models.common import activation_sharding, named_leaves
+from repro_torch.models.model import ShapeCell, forward, init_params, \
+    model_specs
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.train_step import (compress_and_reduce,
+                                         init_train_state,
+                                         make_compressed_train_step,
+                                         make_train_step, value_and_grad)
+
+TRAIN_ARCH = "gemma3-1b-smoke"
+MOE_ARCH = "llama4-scout-17b-a16e-smoke"
+B, T = 8, 32
+OPT = dict(peak_lr=1e-3)
+# the compressed steps: lr 1e-3 from the first step (no warmup), so each
+# step moves every parameter by about 1e-3
+COMP_OPT = dict(peak_lr=1e-3, warmup_steps=1)
+COMP_STEPS = 2
+# values a float SUM would not give back bit for bit: -0.0 + 0.0 is
+# +0.0, and NaN payloads do not survive arithmetic
+GATHER_PROBE = torch.tensor([-0.0, 1.5, -0.0, 0.0] * 3 + [float("nan")] * 4)
+
+
+def train_batch(cfg, b=B, t=T, seed=0):
+    """The JAX package's test batch: tokens and labels from one numpy
+    generator, mask all ones."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+                np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (b, t)).astype(
+                np.int32),
+            "mask": np.ones((b, t), np.float32)}
+
+
+def rank_batch(batch, rank: int, n: int) -> dict:
+    """Rank ``rank``'s rows of a host batch, as tensors (the JAX
+    package's ``P("data")`` split of dim 0 over ``n`` devices)."""
+    b = len(batch["tokens"])
+    return {k: torch.from_numpy(v[rank * b // n:(rank + 1) * b // n])
+            for k, v in batch.items()}
+
+
+def moe_config():
+    return replace(get_config(MOE_ARCH), capacity_factor=8.0)
+
+
+def moe_tokens(cfg):
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+
+
+def _host(t) -> np.ndarray:
+    """A numpy copy of ``t`` (gathered when a DTensor), bf16 as f32."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _tensors(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _tp_step(mesh) -> dict:
+    """One sharded train step of gemma3-1b-smoke (params by
+    ``param_shardings``, batch by ``batch_shardings``) from the port's
+    seed-0 draws: loss, grad norm, every updated parameter (gathered)
+    and the masters' placements."""
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(cfg, 0, device="cpu", masters=True)
+    batch = _tensors(train_batch(cfg))
+    p_sh = param_shardings(model_specs(cfg), cfg, mesh)
+    params = device_put(params, p_sh)
+    # m and v mirror the DTensor masters' placements; the step counter
+    # is the same on every rank (opt_state_shardings: replicated)
+    opt = init_train_state(cfg, params)
+    assert opt_state_shardings(p_sh, mesh)["step"].spec == ()
+    cell = ShapeCell("t", T, B, "train")
+    batch = device_put(batch, batch_shardings(cfg, cell, mesh, batch))
+    step = make_train_step(cfg, OptConfig(**OPT))
+    params, opt, metrics = step(params, opt, batch)
+    return {"loss": float(_host(metrics["loss"])),
+            "grad_norm": float(_host(metrics["grad_norm"])),
+            "params": {k: _host(v) for k, v in named_leaves(params)},
+            "placements": {k: str(tuple(v.placements))
+                           for k, v in named_leaves(params)}}
+
+
+def tp_step_and_moe(rank, mesh):
+    """The sharded train step on DTensor's own gloo collectives (the
+    path an NCCL world takes) and again with them routed through
+    all-reduces (the path a gloo world of CUDA ranks takes), and one
+    expert-parallel forward of llama4-scout-smoke."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    out = {"native": _tp_step(mesh)}
+    with gloo_collectives_over_all_reduce():
+        out["over_all_reduce"] = _tp_step(mesh)
+    mcfg = moe_config()
+    mparams = device_put(init_params(mcfg, 0, device="cpu"),
+                         param_shardings(model_specs(mcfg), mcfg, mesh))
+    toks = device_put(torch.from_numpy(moe_tokens(mcfg)),
+                      NamedSharding(mesh, (data_axes(mesh),)))
+    with torch.no_grad(), implicit_replication(), \
+            activation_sharding(mesh, moe_ep=(data_axes(mesh), "model")):
+        out["moe"] = _host(forward(mparams, toks, mcfg))
+    return out
+
+
+def _toy_grad(w, x):
+    w = w.clone().requires_grad_(True)
+    loss = torch.sum(torch.tanh(x @ w) ** 2)
+    return torch.autograd.grad(loss, w)[0]
+
+
+def compressed(rank, mesh, ckpt_dir):
+    """Data parallelism over ("data",): the JAX package's toy
+    gradient-compression check with a spy on the all-reduce dtypes;
+    ``COMP_STEPS`` compressed train steps of gemma3-1b-smoke on this
+    rank's slice of the batches of seeds 0, 1, ..., with this rank's f32
+    gradient, the carried error feedback and the parameters after each;
+    the bits of a sharded f32 tensor gathered over all-reduces; and a
+    save of a data-sharded tree for the elastic restore."""
+    groups = [device_mesh(mesh).get_group(a) for a in data_axes(mesh)]
+    seen = []
+    real = dist.all_reduce
+
+    def spy(t, *a, **kw):
+        seen.append(str(t.dtype).replace("torch.", ""))
+        return real(t, *a, **kw)
+
+    dist.all_reduce = spy
+    try:
+        rng = np.random.default_rng(0)
+        w = torch.from_numpy((rng.standard_normal((256, 256)) * 0.05)
+                             .astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal((32, 256))
+                             .astype(np.float32))
+        n = mesh.size
+        xs = x[rank * 32 // n:(rank + 1) * 32 // n]
+        g = _toy_grad(w, xs)
+        seen.clear()
+        f32 = g.clone()
+        for grp in groups:
+            dist.all_reduce(f32, group=grp)
+            f32 = f32 / dist.get_world_size(grp)
+        f32_dtypes = list(seen)
+        seen.clear()
+        c16, _ = compress_and_reduce(g, torch.zeros_like(g), groups)
+        bf16_dtypes = list(seen)
+
+        cfg = get_config(TRAIN_ARCH)
+        params = init_params(cfg, 0, device="cpu", masters=True)
+        state = init_train_state(cfg, params)
+        step = make_compressed_train_step(cfg, OptConfig(**COMP_OPT), mesh,
+                                          data_axes(mesh))
+        steps = []
+        for s in range(COMP_STEPS):
+            mine = rank_batch(train_batch(cfg, seed=s), rank, n)
+            # this rank's f32 gradient, as the step computes it
+            _, grads = value_and_grad(params, mine, cfg)
+            seen.clear()
+            params, state, metrics = step(params, state, mine)
+            steps.append({
+                "dtypes": sorted(set(seen)),
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "grads": {k: _host(v) for k, v in named_leaves(grads)},
+                "err": {k: _host(v) for k, v in named_leaves(state["err"])},
+                "params": {k: _host(v) for k, v in named_leaves(params)}})
+    finally:
+        dist.all_reduce = real
+
+    sh = NamedSharding(mesh, ("data",))
+    tree = device_put({"w": torch.arange(64.0).reshape(8, 8),
+                       "b": torch.arange(16, dtype=torch.bfloat16)},
+                      {"w": sh, "b": sh})
+    with gloo_collectives_over_all_reduce():   # the gather of the save
+        CheckpointManager(ckpt_dir).save(1, tree, blocking=True)
+        odd = device_put(GATHER_PROBE.clone(), sh)
+        gathered = odd.full_tensor().view(torch.int32).numpy().copy()
+    return {"f32": _host(f32), "bf16": _host(c16),
+            "f32_dtypes": f32_dtypes, "bf16_dtypes": bf16_dtypes,
+            "steps": steps, "gathered_bits": gathered}
+
+
+def restore(rank, mesh, ckpt_dir):
+    """Restore the world-of-4 checkpoint onto this world, sharded over
+    ("data",); returns each leaf's gathered value, this rank's local
+    block and placements."""
+    sh = NamedSharding(mesh, ("data",))
+    like = {"w": torch.zeros(8, 8), "b": torch.zeros(16,
+                                                     dtype=torch.bfloat16)}
+    step, tree = CheckpointManager(ckpt_dir).restore(
+        like, shardings={"w": sh, "b": sh})
+    return {"step": step,
+            "full": {k: _host(v) for k, v in tree.items()},
+            "local": {k: v.to_local().clone() for k, v in tree.items()},
+            "placements": {k: str(tuple(v.placements))
+                           for k, v in tree.items()},
+            "dtypes": {k: str(v.dtype) for k, v in tree.items()}}
