@@ -71,14 +71,21 @@ process per source, all at once) and drives both of the port's paths:
   against the uncompressed f32 step's (M2),
   llama4-scout's MoE FFN expert-parallel against ``moe_forward`` (M3),
   and the TP masters saved and restored onto a world of 1, bitwise
-  (M4).
+  (M4);
+* the dry run (D), after M: one full-size cell of
+  ``repro_torch.launch.dryrun`` (granite-8b ``decode_32k`` on 256 fake
+  ranks) with its roofline (D1); then a granite-8b decode step and a
+  forward (4 layers) on the card under ``FlopCounterMode`` against the
+  same steps traced on a 1 x 1 fake mesh: equal flops, and each kernel's
+  traced calls equal its launches (D2 / D3).
 
 ``--only relational|async|attention|serving|families|training|timings``
 runs one group (for bring-up: ``relational`` leaves out A0 and A,
 ``async`` runs the CSV decoder, A0 and A, ``serving``, ``families`` and
-``training`` run S1 first, ``timings`` only times the filter kernel and
-the decoder); ``--only sharded`` runs M alone (its kernels line
-carries launches only); ``--only surfaces`` runs E1-E4, and ``--only benches``
+``training`` run S1 first, ``timings`` only times the filter kernel,
+the decoder and the two attention wrappers); ``--only sharded`` runs M
+and ``--only dryrun`` D alone (their kernels lines carry launches
+only); ``--only surfaces`` runs E1-E4, and ``--only benches``
 runs the four other bench scripts on the card (not part of the whole
 run); with no argument every other phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
@@ -3893,12 +3900,158 @@ def sharded_phase(cuda, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase D: the multi-device dry run, and its counts against the card's
+# ---------------------------------------------------------------------------
+D_CELL = ("granite-8b", "decode_32k")       # D1, at full size, 256 ranks
+D_LAYERS = 4                                # of granite-8b's 36, D2-D3
+D_DECODE = (8, 1024)                        # D2: batch, cache slots
+D_PREFILL = (2, 256)                        # D3: batch, tokens
+D_TIMEOUT_S = 300
+
+
+def dryrun_cell(smi: str) -> dict:
+    """D1: one cell of the dry run as a user runs it (``python -m
+    repro_torch.launch.dryrun``, a process of its own, since the fake
+    process group belongs to its process), read back from its report."""
+    arch, shape = D_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--force"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=D_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    path = (ROOT / "reports" / "dryrun_torch"
+            / f"{arch}__{shape}__pod16x16.json")
+    if out.returncode != 0 or not path.exists():
+        raise AssertionError(f"D1: the dry run failed (exit "
+                             f"{out.returncode}): {out.stderr[-2000:]}")
+    rep = json.loads(path.read_text())
+    if rep["status"] != "ok" or rep["chips"] != 256 \
+            or rep["kernel_calls"] != {"decode_attention": 36}:
+        raise AssertionError(f"D1: {arch} {shape}: status {rep['status']} "
+                             f"{rep.get('error')}, kernel calls "
+                             f"{rep.get('kernel_calls')}")
+    r = rep["roofline"]
+    log(f"D1 dry run {arch} {shape} pod16x16 ({rep['chips']} fake ranks, "
+        f"{seconds:.1f} s with the process's start): flops/device "
+        f"{rep['flops_per_device']:.6g}, bytes/device "
+        f"{rep['bytes_accessed_per_device']:.6g}, collective bytes/device "
+        f"{rep['collective_bytes_per_device']:.6g} {rep['collectives']}, "
+        f"peak estimate {rep['memory']['peak_bytes_per_device_est']:.6g} B; "
+        f"roofline on the {r['device']} peaks: compute {r['compute_s']} s, "
+        f"memory {r['memory_s']} s, collective {r['collective_s']} s, "
+        f"dominant {r['dominant']}, MFU bound {r['roofline_fraction_mfu']} "
+        f"[{smi}]")
+    return rep
+
+
+def dryrun_parity(device, smi: str) -> dict:
+    """D2-D3: granite-8b at full width, D_LAYERS layers, one decode step
+    at a full cache (D2) and one forward (D3) on the card under
+    ``FlopCounterMode``, then the same steps traced by the dry run on a
+    1 x 1 fake mesh: the flop totals must be equal, and the trace's calls
+    of each kernel's custom operator must equal the wrapper's launches on
+    the card.  Returns the launches on the card by kernel."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import ShapeCell, decode_step, forward, init_params
+    from repro_torch.models.decoder import init_cache
+
+    cfg = replace(get_config("granite-8b"), n_layers=D_LAYERS)
+    params = init_params(cfg, SERVE_SEED, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SERVE_SEED)
+    (b_dec, slots), (b_pre, t_pre) = D_DECODE, D_PREFILL
+    cache = init_cache(cfg, b_dec, slots, device=device)
+    token = torch.randint(0, cfg.vocab_size, (b_dec, 1), generator=gen,
+                          device=device, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (b_pre, t_pre), generator=gen,
+                           device=device, dtype=torch.int32)
+    cases = (
+        ("D2 decode", ShapeCell("decode", slots, b_dec, "decode"),
+         lambda: decode_step(params, cache, token, slots - 1, cfg)[0]),
+        ("D3 prefill", ShapeCell("prefill", t_pre, b_pre, "prefill"),
+         lambda: forward(params, tokens, cfg)))
+    launches = {}
+    for label, cell, step in cases:
+        DK.reset_launches()
+        FK.reset_launches()
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            out = step()
+        torch.cuda.synchronize()
+        real = {k: v for k, v in {**DK.LAUNCHES, **FK.LAUNCHES}.items()
+                if v}
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        fake = trace_step(cfg, cell, 1, lambda devices: make_test_mesh(
+            (1, 1), ("data", "model"), devices=devices))
+        if fake["flops"] != fc.get_total_flops() \
+                or fake["kernel_calls"] != real:
+            raise AssertionError(
+                f"{label}: the card counted {fc.get_total_flops()} flops and "
+                f"launched {real}; the dry run counted {fake['flops']} flops "
+                f"and called {fake['kernel_calls']}")
+        for k, v in real.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"{label}: granite-8b, {D_LAYERS} of 36 layers, {cell.step} "
+            f"batch {cell.global_batch} x {cell.seq_len}: {fake['flops']} "
+            f"flops on the card and in the 1 x 1 dry run, equal; kernels "
+            f"{real} launched on the card and traced, equal; trace "
+            f"{fake['trace_seconds']:.2f} s [{smi}]")
+        del out
+    return launches
+
+
+def dryrun_phase(cuda, smi: str) -> dict:
+    """Phase D: D1, then D2-D3; returns the card's launches by kernel."""
+    dryrun_cell(smi)
+    return dryrun_parity(cuda, smi)
+
+
+def attention_wrapper_timings(device, smi: str) -> None:
+    """``--only timings``: the two attention wrappers of the checkout,
+    CUDA-event median of 30 calls, at S2's batched decode (8 rows x 272
+    live keys of a 1024-slot cache) and a causal forward at T = S = 256
+    (granite-8b's heads, bf16): the per-call cost of the wrapper's path
+    to its kernel."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    bf16 = torch.bfloat16
+    q = _randn((8, 32, 128), bf16, device, gen)
+    k = _randn((8, 8, 1024, 128), bf16, device, gen)
+    v = _randn((8, 8, 1024, 128), bf16, device, gen)
+    lens = torch.full((8,), 272, dtype=torch.int32, device=device)
+    qf = _randn((1, 32, 256, 128), bf16, device, gen)
+    kf = _randn((1, 8, 256, 128), bf16, device, gen)
+    vf = _randn((1, 8, 256, 128), bf16, device, gen)
+    for name, fn in (
+            ("decode_attention wrapper, 8 rows x 272 keys",
+             lambda: DK.decode_attention(q, k, v, lens)),
+            ("flash_attention wrapper, T = S = 256 causal",
+             lambda: FK.flash_attention(qf, kf, vf, causal=True))):
+        log(f"{name}: {time_ms(fn):.4f} ms a call (CUDA events, median of "
+            f"30) [{smi}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
                                        "timings", "surfaces", "benches",
-                                       "sharded"),
+                                       "sharded", "dryrun"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -3934,8 +4087,7 @@ def main(argv=None) -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; kernels of {tree}")
     log(set_peaks(kind))
-    sources = ((FILTER_SCAN_CU, CSV_PARSE_CU) if args.only == "timings"
-               else SOURCES)
+    sources = SOURCES
     seconds, usage = build_kernels(sources, tree)
     log(f"build: {seconds:.1f} s (nvcc, sm_90a, {len(sources)} sources in "
         f"parallel)")
@@ -3958,6 +4110,9 @@ def main(argv=None) -> int:
             cuda, smi, main_path_too=args.only != "async",
             async_too=args.only != "relational",
             checks=args.only != "timings"))
+    if args.only == "timings":
+        phase("attention wrappers", lambda: attention_wrapper_timings(
+            cuda, smi))
     if args.only in (None, "surfaces"):
         surfaces = phase("surfaces", lambda: surfaces_phase(cuda, smi))
     if args.only == "benches":
@@ -3970,13 +4125,18 @@ def main(argv=None) -> int:
     sharded = None
     if args.only in (None, "sharded"):
         sharded = phase("sharded", lambda: sharded_phase(cuda, smi))
-    if args.only == "sharded":
-        # bring-up: the sharded path's launches alone, no timings
+    dryrun = None
+    if args.only in (None, "dryrun"):
+        dryrun = phase("dryrun", lambda: dryrun_phase(cuda, smi))
+    if args.only in ("sharded", "dryrun"):
+        # bring-up: the path's launches alone, no timings
+        counts = sharded if args.only == "sharded" else dryrun
         kernels = [dict(name=name, route="cuda", source=src, replaces=line,
-                        launches=sharded.get(counted, 0), path="sharded",
+                        launches=counts.get(counted, 0), path=args.only,
                         launches_by_path={})
                    for name, src, line, counted in M_KERNELS]
-    for name, key in (("surfaces", surfaces), ("sharded", sharded)):
+    for name, key in (("surfaces", surfaces), ("sharded", sharded),
+                      ("dryrun", dryrun)):
         if key is None:
             continue
         # the surfaces' card runs and the sharded paths, beside the main

@@ -5,6 +5,23 @@ the plain torch version in ``ref.py`` only for CPU tensors.  One call is
 one launch: clusters of :func:`split_plan` CTAs share each batch row's
 live keys and combine their partials over distributed shared memory.
 Each launch adds one to :data:`LAUNCHES`.
+
+The launch is also the CUDA implementation of the custom operator
+``torch.ops.repro_torch.decode_attention``.  A CUDA tensor takes the
+operator while a dispatch mode is active (``FlopCounterMode``, the dry
+run's counter), so that the mode sees the kernel as one operator, and
+calls the launch directly otherwise: the operator's dispatch costs tens
+of microseconds a call on the host, and serving calls this kernel once
+an attention layer and token.  A fake tensor (a ``FakeTensorMode``
+trace, as the multi-device dry run makes) takes the operator on any
+device, and its fake implementation returns an empty output of the
+kernel's shape, dtype and device and computes nothing: the trace counts
+the kernel, not the plain version.  Its flop formula
+(:func:`decode_flops`) counts 4 D flops per key per batch row and query
+head (q K^T and P V, 2 D each) over every slot of the cache, at most
+``window`` of them: the live lengths are data, which a formula over
+shapes cannot read, so it counts a full cache, as the dry run's decode
+cells pass one.
 """
 from __future__ import annotations
 
@@ -13,6 +30,9 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import decode_ref
@@ -81,7 +101,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _check(q, k, v, kv_len) -> None:
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not isinstance(q, FakeTensor):
         raise ValueError(f"the kernel runs on CUDA tensors, not "
                          f"{q.device.type}")
     if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
@@ -108,9 +128,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, D); k, v: (B, Hkv, S, D); kv_len: (B,) live lengths.
     Returns (B, Hq, D) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not isinstance(q, FakeTensor):
         return decode_ref(q, k, v, kv_len, sm_scale=sm_scale, window=window)
     _check(q, k, v, kv_len)
+    scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[2] ** 0.5)
+    args = (q, k, v, kv_len, None if window is None else int(window),
+            float(scale))
+    if isinstance(q, FakeTensor) or _get_current_dispatch_mode() is not None:
+        return _decode_op(*args)
+    return _decode_launch(*args)
+
+
+def _decode_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_len: torch.Tensor, window: Optional[int],
+                   sm_scale: float) -> torch.Tensor:
+    """The kernel's launch on checked CUDA tensors."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     # 16-byte vector loads: contiguous and aligned
@@ -120,15 +152,32 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len.dtype != torch.int32:
         kv_len = kv_len.to(torch.int32)
     kv_len = kv_len.contiguous()
-    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     n_split = split_plan(hkv, s, d, _sm_count(q.device))
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), b,
             hq, hkv, s, d, _DTYPE_CODE[q.dtype],
-            -1 if window is None else int(window), float(scale), n_split,
+            -1 if window is None else window, sm_scale, n_split,
             out.data_ptr())
     rc = _build.launch_on(q.device, _lib().decode_attention_launch, args)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc}")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+_decode_op = torch.library.custom_op("repro_torch::decode_attention",
+                                     _decode_launch, mutates_args=(),
+                                     device_types="cuda")
+
+
+@_decode_op.register_fake
+def _decode_fake(q, k, v, kv_len, window, sm_scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def decode_flops(q_shape, k_shape, v_shape, kv_len_shape, window, sm_scale,
+                 *, out_shape=None, **kwargs) -> int:
+    b, hq, d = q_shape
+    keys = k_shape[2] if window is None else min(k_shape[2], window)
+    return 4 * b * hq * d * keys

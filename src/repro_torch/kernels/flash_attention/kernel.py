@@ -9,6 +9,21 @@ units) and writes the output in q's layout; f32 inputs take the CUDA-core
 kernel on contiguous tensors.  Each launch adds one to
 :data:`LAUNCHES`.  Forward only: ``ops.attention`` carries the
 gradient, through a recompute of the plain version.
+
+The launch is also the CUDA implementation of the custom operator
+``torch.ops.repro_torch.flash_attention``.  A CUDA tensor takes the
+operator while a dispatch mode is active (``FlopCounterMode``, the dry
+run's counter), so that the mode sees the kernel as one operator, and
+calls the launch directly otherwise: the operator's dispatch costs tens
+of microseconds a call on the host.  A fake tensor (a
+``FakeTensorMode`` trace, as the multi-device dry run makes) takes the
+operator on any device, and its fake implementation returns an empty
+output of the kernel's shape, dtype, device and layout and computes
+nothing: the trace counts the kernel, not the plain version.  Its flop formula
+(:func:`flash_flops`) counts 4 D flops per (query, key) pair that the
+mask keeps, per batch row and query head: Q K^T and P V, 2 D each.  A
+causal mask over T = S keeps T (T + 1) / 2 pairs, about half; a window
+keeps at most ``window`` keys a query.
 """
 from __future__ import annotations
 
@@ -18,6 +33,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import mha_ref
@@ -54,7 +72,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(q, k, v) -> None:
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not isinstance(q, FakeTensor):
         raise ValueError(f"the kernel runs on CUDA tensors, not "
                          f"{q.device.type}")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
@@ -75,11 +93,15 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k, v must lie on one device")
 
 
+def _tma_strides(x: torch.Tensor) -> bool:
+    """Unit last stride, the other strides in whole 16-byte units."""
+    return x.stride(-1) == 1 and all(st % 8 == 0 for st in x.stride()[:-1])
+
+
 def _tma_ready(x: torch.Tensor) -> bool:
-    """Whether a tensor map can describe ``x`` as it is: unit last
-    stride, other strides and the address in whole 16-byte units."""
-    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in x.stride()[:-1]))
+    """Whether a tensor map can describe ``x`` as it is: its strides
+    (:func:`_tma_strides`) and its address in whole 16-byte units."""
+    return _tma_strides(x) and x.data_ptr() % 16 == 0
 
 
 def _strides(*xs) -> ctypes.Array:
@@ -99,10 +121,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Hq, T, D); k, v: (B, Hkv, S, D); returns (B, Hq, T, D) in
     q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not isinstance(q, FakeTensor):
         return mha_ref(q, k, v, causal=causal, window=window,
                        sm_scale=sm_scale)
     _check(q, k, v)
+    scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[3] ** 0.5)
+    args = (q, k, v, bool(causal), None if window is None else int(window),
+            float(scale))
+    if isinstance(q, FakeTensor) or _get_current_dispatch_mode() is not None:
+        return _flash_op(*args)
+    return _flash_launch(*args)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: Optional[int], sm_scale: float
+                  ) -> torch.Tensor:
+    """The kernel's launch on checked CUDA tensors."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:
@@ -111,11 +145,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    for x in (q, k, v))
     else:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _strides(q, k, v, out),
             b, hq, hkv, t, s, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-            -1 if window is None else int(window), float(scale),
+            -1 if window is None else window, sm_scale,
             out.data_ptr())
     rc = _build.launch_on(q.device, _lib().flash_attention_launch, args)
     if rc != 0:
@@ -123,3 +156,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention",
+                                    _flash_launch, mutates_args=(),
+                                    device_types="cuda")
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, sm_scale):
+    # the output takes q's layout where the kernel reads q as it is (a
+    # fake tensor's address is unknown: taken as aligned)
+    if q.dtype == torch.bfloat16 and _tma_strides(q):
+        return torch.empty_like(q)
+    return q.new_empty(q.shape)
+
+
+def attended_pairs(t: int, s: int, causal: bool,
+                   window: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps: query row i sits at key
+    position p = i + S - T and reads keys ``(p - window, p]`` when
+    causal, ``(p - window, S)`` otherwise (no lower end without a
+    window)."""
+    o = s - t
+    if causal:
+        # query i reads min(p + 1, window) keys, p + 1 = i + o + 1
+        return _sum_clamped(o + 1, t, 0, s if window is None else window)
+    if window is None:
+        return t * s
+    # query i reads S - clamp(p - window + 1, 0, S) keys
+    return t * s - _sum_clamped(o - window + 1, t, 0, s)
+
+
+def _sum_clamped(a: int, n: int, lo: int, hi: int) -> int:
+    """sum over x in [a, a + n) of min(max(x, lo), hi), for lo <= hi."""
+    below = min(max(lo - a, 0), n)
+    above = min(max(a + n - 1 - hi, 0), n)
+    x0, x1 = max(a, lo), min(a + n - 1, hi)
+    middle = (x0 + x1) * (x1 - x0 + 1) // 2 if x0 <= x1 else 0
+    return below * lo + above * hi + middle
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, causal, window, sm_scale, *,
+                out_shape=None, **kwargs) -> int:
+    b, hq, t, d = q_shape
+    return 4 * b * hq * d * attended_pairs(t, k_shape[2], causal, window)

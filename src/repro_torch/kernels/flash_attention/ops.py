@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .kernel import flash_attention
 from .ref import mha_ref
@@ -31,7 +32,8 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, sm_scale, impl):
         ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, sm_scale)
-        if impl == "pallas" or q.device.type == "cuda":
+        if impl == "pallas" or q.device.type == "cuda" \
+                or isinstance(q, FakeTensor):
             return flash_attention(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale)
         return mha_ref(q, k, v, causal=causal, window=window,
@@ -55,8 +57,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: str = "pallas") -> torch.Tensor:
     """``impl="pallas"`` takes the kernel wrapper; any other impl the
     plain version, except on CUDA tensors, which always launch the
-    kernel.  Gradients reach q, k and v through the recompute
-    backward."""
+    kernel, and on fake tensors, which always trace it.  Gradients
+    reach q, k and v through the recompute backward."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(q, DTensor):

@@ -9,12 +9,16 @@ Three terms per cell, in seconds:
 The peaks differ between the H100's parts (SXM, PCIe, NVL), so they are
 read from :func:`hardware` by the name ``torch.cuda.get_device_name()``
 gives, never assumed.  A cell's collective bytes come from the
-multi-device dry run, which counts them itself.
+multi-device dry run (``launch/dryrun.py``), which records every
+functional collective its step dispatches on the local shards;
+:func:`collective_bytes_from_ops` sums them as the JAX package's
+``collective_bytes_from_hlo`` sums the collectives of its partitioned
+HLO, under the same op names.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -55,6 +59,37 @@ def hardware(name: str) -> Hardware:
                 return hw
     raise ValueError(f"no published peaks for device {name!r}; known "
                      f"parts: {sorted({hw.part for _, hw in _PARTS})}")
+
+
+# torch's functional collectives (``torch.ops._c10d_functional``) by the
+# names the JAX package's HLO gives the same collectives
+COLLECTIVE_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def collective_bytes_from_ops(calls: Iterable[Tuple[str, int]]) -> Dict:
+    """``calls``: (op name, bytes of its result on this rank) for each
+    functional collective a step dispatched, the op named as in
+    ``torch.ops._c10d_functional`` (``all_gather_into_tensor``).
+    Returns ``{"total", "by_op", "op_counts"}`` with the JAX package's op
+    names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+    ``all-to-all``); a collective outside :data:`COLLECTIVE_OPS` keeps
+    its own name, so that nothing is dropped."""
+    by_op: Dict[str, int] = {}
+    count: Dict[str, int] = {}
+    for name, nbytes in calls:
+        op = COLLECTIVE_OPS.get(name, name)
+        by_op[op] = by_op.get(op, 0) + int(nbytes)
+        count[op] = count.get(op, 0) + 1
+    return {"total": sum(by_op.values()), "by_op": by_op,
+            "op_counts": count}
 
 
 def summarize_memory(device=None) -> Dict:

@@ -26,7 +26,8 @@ import torch
 from ..kernels.decode_attention.ops import decode
 from ..kernels.flash_attention.ops import attention
 from ..kernels.flash_attention.ref import mha_ref
-from .common import ParamSpec, apply_rope, rmsnorm, rmsnorm_spec
+from .common import (ParamSpec, apply_rope, reduce_row_parallel, rmsnorm,
+                     rmsnorm_spec)
 from .config import ArchConfig
 
 
@@ -44,7 +45,23 @@ def gqa_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, t, _ = x.shape
-    return x.reshape(b, t, n_heads, -1).transpose(1, 2)
+    return _whole_heads(x, n_heads).reshape(b, t, n_heads, -1).transpose(1, 2)
+
+
+def _whole_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``x`` (B, T, H * D); a DTensor whose last dim a mesh dim splits
+    into parts that cut through heads (8 kv heads over 16 ranks) is
+    replicated over that mesh dim first, since DTensor cannot split a
+    dim into heads unevenly."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == x.ndim - 1
+           and n_heads % x.device_mesh.size(i) else pl
+           for i, pl in enumerate(x.placements)]
+    return x if pls == list(x.placements) else \
+        x.redistribute(x.device_mesh, pls)
 
 
 def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -59,7 +76,7 @@ def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     out = attention(q, k, v, True, window, None, cfg.attn_impl)
     b, h, t, hd = out.shape
     out = out.transpose(1, 2).reshape(b, t, h * hd)
-    return out @ p["wo"]
+    return reduce_row_parallel(out @ p["wo"])
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -93,7 +110,7 @@ def gqa_decode(p, x: torch.Tensor, cache: Dict, write_idx: int,
                         device=x.device)
     out = decode(q, cache["k"], cache["v"], kv_len, window=window,
                  impl=cfg.attn_impl)
-    return out.reshape(b, 1, -1) @ p["wo"], cache
+    return reduce_row_parallel(out.reshape(b, 1, -1) @ p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

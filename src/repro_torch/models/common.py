@@ -141,6 +141,21 @@ def map_specs(specs, fn):
     return [map_specs(v, fn) for v in specs]
 
 
+def abstract_params(specs: SpecTree,
+                    dtype: Optional[torch.dtype] = None) -> Dict:
+    """Shape and dtype stand-ins of the parameters, as the JAX package's
+    ``abstract_params`` gives ``ShapeDtypeStruct``s: one tensor on the
+    ``meta`` device a leaf, which allocates nothing.  By default each
+    leaf has its spec's dtype (f32, training's masters); with ``dtype``
+    the storage dtypes serving keeps (:func:`storage_dtype`)."""
+    def one(s: ParamSpec) -> torch.Tensor:
+        dt = getattr(torch, s.dtype) if dtype is None \
+            else storage_dtype(s, dtype)
+        return torch.empty(s.shape, dtype=dt, device="meta")
+
+    return map_specs(specs, one)
+
+
 def materialize_params(specs: SpecTree, seed: int, dtype: torch.dtype,
                        device: torch.device) -> ParamTree:
     """Draw every leaf from one generator seeded with ``seed``, in spec
@@ -228,6 +243,32 @@ def shard_activation(x: torch.Tensor, spec, enabled: bool) -> torch.Tensor:
                          "context naming the mesh")
     return x.redistribute(x.device_mesh,
                           placements(NamedSharding(mesh, tuple(spec))))
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor holding partial sums (an embedding lookup in a
+    vocab-split table, a row-parallel product) summed over those mesh
+    dims now; anything else as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+
+    pls = [Replicate() if isinstance(pl, Partial) else pl
+           for pl in x.placements]
+    return x if pls == list(x.placements) else \
+        x.redistribute(x.device_mesh, pls)
+
+
+def reduce_row_parallel(x: torch.Tensor) -> torch.Tensor:
+    """The output of a row-parallel product (attention's and the dense
+    FFN's output projections), summed at once when no gradient is
+    recorded (prefill and decode), as tensor parallelism all-reduces
+    after such a layer: left partial, it reaches the residual stream and
+    the norms, where DTensor picks its own reductions and, at 32K-token
+    prompts, splits the tokens in a way it then cannot multiply on fake
+    tensors.  Under autograd it stays partial: the backward of the eager
+    sum hands the head merge a gradient split through heads."""
+    return x if torch.is_grad_enabled() else reduce_partial(x)
 
 
 # ---------------------------------------------------------------------------

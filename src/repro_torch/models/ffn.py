@@ -25,7 +25,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from .common import ParamSpec, reduce_row_parallel
 from .config import ArchConfig
 
 
@@ -42,7 +42,7 @@ def dense_specs(cfg: ArchConfig, d_ff: int | None = None
 
 def dense_forward(p, x: torch.Tensor, dtype) -> torch.Tensor:
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    return reduce_row_parallel(h @ p["w2"])
 
 
 def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:

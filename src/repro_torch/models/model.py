@@ -4,8 +4,9 @@ and training's f32 masters with their per-step cast (:func:`cast_params`).
 Modality frontends (VLM patches / audio frames) are stubs as in the JAX
 package: precomputed (B, n_prefix, d_model) embeddings arrive as an
 input.  ``ShapeCell`` / ``SHAPES`` name the assignment's step shapes,
-which the sharding rules take; the dry-run stand-ins (``input_specs``)
-wait for the dry run (ROADMAP A6).
+which the sharding rules take, and :func:`input_specs` gives shape and
+dtype stand-ins (``meta`` tensors) of each cell's inputs, which the
+multi-device dry run (``launch/dryrun.py``) traces against.
 """
 from __future__ import annotations
 
@@ -15,9 +16,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .common import (ParamSpec, ParamTree, constrain, cross_entropy,
-                     materialize_params, rmsnorm, rmsnorm_spec,
-                     storage_dtype)
+from .common import (ParamSpec, ParamTree, _is_dtensor, constrain,
+                     cross_entropy, materialize_params, rmsnorm,
+                     rmsnorm_spec, storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -73,6 +74,20 @@ def cast_params(masters, cfg: ArchConfig) -> Dict:
     return cast(model_specs(cfg), masters)
 
 
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  A DTensor table split over a
+    mesh dim (the vocab, or the embedding under FSDP) is gathered whole
+    first, as DTensor's index would gather it, so the rows come out
+    split like the tokens and whole otherwise."""
+    table = params["embed"]
+    if _is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return table[tokens]
+
+
 def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -89,7 +104,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens: (B, T_tok) int -> logits (B, T, V)."""
     dtype = compute_dtype(cfg)
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dtype), x], dim=1)
     x = constrain(x, ("batch", None, None))
@@ -115,7 +130,7 @@ def decode_step(params, cache, token: torch.Tensor, cur_len: int,
     """token: (B, 1) int; returns (logits (B, V), cache).  The cache is
     updated in place (see ``attention.gqa_decode``)."""
     dtype = compute_dtype(cfg)
-    x = params["embed"][token]
+    x = _embed(params, token)
     x, cache = decoder_decode_step(params["layers"], cache, x, int(cur_len),
                                    cfg, dtype)
     return _logits(params, x, cfg)[:, 0], cache
@@ -145,3 +160,25 @@ def get_shape(name: str) -> ShapeCell:
         if s.name == name:
             return s
     raise KeyError(name)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell) -> Dict[str, torch.Tensor]:
+    """Stand-ins (tensors on the ``meta`` device, never allocated) for
+    each input of the cell's step function, with the JAX package's
+    shapes and dtypes."""
+    b, t = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.step == "decode":
+        # one new token against a KV / state cache of length t
+        return {"token": meta((b, 1), torch.int32)}
+    specs = {"tokens": meta((b, t - cfg.n_prefix_tokens), torch.int32)}
+    if shape.step == "train":
+        specs["labels"] = meta((b, t), torch.int32)
+        specs["mask"] = meta((b, t), torch.float32)
+    if cfg.n_prefix_tokens:
+        specs["prefix_embeds"] = meta((b, cfg.n_prefix_tokens, cfg.d_model),
+                                      compute_dtype(cfg))
+    return specs

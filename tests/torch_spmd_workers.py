@@ -219,3 +219,50 @@ def restore(rank, mesh, ckpt_dir):
             "placements": {k: str(tuple(v.placements))
                            for k, v in tree.items()},
             "dtypes": {k: str(v.dtype) for k, v in tree.items()}}
+
+
+DECODE_ARCHS = ("granite-8b-smoke", "gemma3-1b-smoke")
+DECODE_B, DECODE_SLOTS, DECODE_POS = 4, 16, 11
+
+
+def sharded_decode(rank, mesh):
+    """One decode step of each ``DECODE_ARCHS`` config on parameters,
+    cache and token placed by the sharding rules (DTensor on every
+    rank) and on plain tensors: both logits and both updated caches,
+    gathered.  granite-8b-smoke's 2 kv heads split over "model";
+    gemma3-1b-smoke's one kv head cannot, so the ranks split its 4 q
+    heads within it."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.models.decoder import init_cache, map_cache
+    from repro_torch.models.model import decode_step
+
+    out = {}
+    for arch in DECODE_ARCHS:
+        cfg = get_config(arch)
+        params = init_params(cfg, 0, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        cache = map_cache(init_cache(cfg, DECODE_B, DECODE_SLOTS,
+                                     device="cpu"),
+                          lambda t: torch.randn(t.shape, generator=gen))
+        token = torch.randint(0, cfg.vocab_size, (DECODE_B, 1),
+                              generator=gen, dtype=torch.int32)
+        cell = ShapeCell("d", DECODE_SLOTS, DECODE_B, "decode")
+        plain_cache = map_cache(cache, torch.clone)
+        with torch.no_grad():
+            want, _ = decode_step(params, plain_cache, token, DECODE_POS,
+                                  cfg)
+            p = device_put(params, param_shardings(model_specs(cfg), cfg,
+                                                   mesh))
+            c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+            t = device_put(token, batch_shardings(
+                cfg, cell, mesh, {"token": token})["token"])
+            with implicit_replication():
+                got, c = decode_step(p, c, t, DECODE_POS, cfg)
+        out[arch] = {
+            "logits": _host(got), "want": _host(want),
+            "cache": [_host(x) for _, x in named_leaves(c)],
+            "want_cache": [_host(x) for _, x in named_leaves(plain_cache)],
+            "k_placements": str(tuple(named_leaves(c)[0][1].placements))}
+    return out
