@@ -17,6 +17,15 @@ count-closed windows of ``max_batch``:
 The tracing lane interleaves warm windowed passes with span tracing off
 and on, pass by pass, on one primed session.
 
+The mixed-syntax lane (``run_mixed``, the counterpart of the JAX
+bench's): every warm pass spells the same F2 + F5 dashboard in another
+author style (reordered conjuncts, flipped literals, pushed negations,
+hand-built legacy trees); the canonical plan IR folds every spelling
+onto one fingerprint, so the warm windows keep hitting resident CEs
+(``canonical_hit_rate`` counts the hits of first-seen spellings).  Its
+gate (``mixed_gate``: ``mixed_warm_speedup >= 1.3`` and a canonical hit
+rate above 0) is the exit status of ``torch_bench_canonical.py``.
+
 Correctness (hard failures): the streamed tables equal independent
 mqo-off execution.  Speed gate (the exit status): the windowed warm
 speedup ``>= 1.3`` (the reference's acceptance) and the warm throughput
@@ -46,6 +55,7 @@ MAX_BATCH = 4
 REPEATS = 5
 MIN_WARM_SPEEDUP = 1.3
 TRACING_MIN_RATIO = 0.95
+N_STYLES = 4                # author spellings of the mixed-syntax lane
 
 
 def _session(device, scale_rows: int, disk: bool = True):
@@ -181,17 +191,169 @@ def run_tracing_overhead(device="cuda", scale_rows: int = SCALE_ROWS,
     return out
 
 
+def _mixed_spellings(sess, style: int):
+    """The F2 + F5 dashboard, each query in author style ``style``
+    (0 the native spelling; 1 reordered conjuncts; 2 flipped literals
+    and pushed negations; 3 hand-built legacy trees), in the JAX
+    bench's order."""
+    import warnings
+
+    from repro_torch.relational import c, expr as E
+
+    ss = sess.table("store_sales")
+    qs = []
+    for thr in (50, 60, 70, 80, 90, 55, 65, 75):
+        t = float(thr)
+        if style == 0:
+            pred = (c.ss_sales_price > t) & (c.ss_quantity >= 10)
+        elif style == 1:
+            pred = (c.ss_quantity >= 10) & (c.ss_sales_price > t)
+        elif style == 2:
+            pred = (t < c.ss_sales_price) & ~(c.ss_quantity < 10)
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                qs.append(sess.scan_node("store_sales")
+                          .filter(E.and_(
+                              E.Not(E.cmp("ss_quantity", "<", 10)),
+                              E.Cmp("<", E.Lit(t),
+                                    E.Col("ss_sales_price"))))
+                          .project("ss_item_sk", "ss_customer_sk",
+                                   "ss_sales_price", "ss_net_profit"))
+            continue
+        qs.append(ss.where(pred).select(
+            "ss_item_sk", "ss_customer_sk", "ss_sales_price",
+            "ss_net_profit"))
+    for lo in (0.0, 10.0, 20.0, 30.0, 40.0, 50.0):
+        if style in (0, 1):
+            pred = c.ss_net_profit > lo
+        elif style == 2:
+            pred = ~(c.ss_net_profit <= lo)
+        else:
+            pred = lo < c.ss_net_profit
+        qs.append(ss.where(pred).select("ss_item_sk", "ss_net_profit")
+                  .sort("ss_net_profit", desc=True).limit(100))
+    order = np.random.default_rng(0).permutation(len(qs))
+    return [qs[i] for i in order]
+
+
+def _mixed_pass(svc, queries) -> Dict:
+    import warnings
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        handles = [svc.submit(q) for q in queries]
+        svc.flush()
+    seconds = time.perf_counter() - t0
+    exps = [h.explain() for h in handles]
+    return {"seconds": seconds, "handles": handles,
+            "reused": sum(1 for e in exps if e["resident_reuse"]),
+            "with_ces": sum(1 for e in exps if e["ces"])}
+
+
+def run_mixed(device="cuda", scale_rows: int = SCALE_ROWS,
+              max_batch: int = MAX_BATCH, repeats: int = REPEATS) -> Dict:
+    """The cold one-shot style-0 batch against warm windowed passes,
+    each in the next style; writes
+    ``reports/bench/torch_service_mixed_syntax.json``."""
+    from repro_torch.relational import QueryService
+
+    warmup = _session(device, scale_rows, disk=False)
+    wsvc = QueryService(warmup, max_batch=max_batch)
+    _mixed_pass(wsvc, _mixed_spellings(warmup, 0))
+    _mixed_pass(wsvc, _mixed_spellings(warmup, 1))
+
+    sess = _session(device, scale_rows)
+    t0 = time.perf_counter()
+    cold = sess.run_batch(_mixed_spellings(sess, 0), mqo=True)
+    cold_wall = time.perf_counter() - t0
+
+    # the first windowed pass materializes the window-shaped CEs (its
+    # windows merge other member subsets than the one-shot batch did)
+    svc = QueryService(sess, max_batch=max_batch)
+    prime = _mixed_pass(svc, _mixed_spellings(sess, 1))
+    seen_styles = {0, 1}
+    passes, fresh_flags = [], []
+    for p in range(repeats):
+        style = (p + 2) % N_STYLES
+        fresh_flags.append(style not in seen_styles)
+        seen_styles.add(style)
+        passes.append(_mixed_pass(svc, _mixed_spellings(sess, style)))
+    warm = min(passes, key=lambda p: p["seconds"])
+
+    base = sess.run_batch(_mixed_spellings(sess, 0), mqo=False)
+    for b, h in zip(base.results, warm["handles"]):
+        assert b.table.row_multiset() == h.result().row_multiset()
+
+    # only first-seen spellings count: a hit there is the canonical IR
+    # folding a new spelling onto a resident fingerprint
+    fresh = [p for p, f in zip(passes, fresh_flags) if f]
+    hits = sum(p["reused"] for p in fresh)
+    total = sum(p["with_ces"] for p in fresh)
+    out = {
+        "scale_rows": scale_rows, "fmt": FMT,
+        "disk_latency_per_byte": DISK_LATENCY,
+        "n_queries": len(base.results), "max_batch": max_batch,
+        "n_styles": N_STYLES,
+        "cold_oneshot_s": cold_wall,
+        "cold_exec_s": cold.total_seconds,
+        "prime_mixed_s": prime["seconds"],
+        "warm_mixed_s": warm["seconds"],
+        "pass_seconds": [p["seconds"] for p in passes],
+        "mixed_warm_speedup": cold_wall / max(warm["seconds"], 1e-12),
+        "canonical_hit_rate": hits / max(total, 1),
+        "fresh_spelling_passes": sum(fresh_flags),
+        "warm_reused_per_pass": [p["reused"] for p in passes],
+    }
+    save("service_mixed_syntax", out, device)
+    return out
+
+
+def mixed_gate(mixed: Dict) -> List[str]:
+    failures = []
+    if mixed["mixed_warm_speedup"] < MIN_WARM_SPEEDUP:
+        failures.append(f"mixed-syntax warm speedup "
+                        f"{mixed['mixed_warm_speedup']:.2f} < "
+                        f"{MIN_WARM_SPEEDUP}")
+    if not mixed["canonical_hit_rate"] > 0:
+        failures.append(f"canonical hit rate "
+                        f"{mixed['canonical_hit_rate']:.2f} is not above 0")
+    return failures
+
+
+def mixed_line(mixed: Dict) -> str:
+    return csv_line(
+        "service_mixed_syntax", mixed["warm_mixed_s"],
+        f"cold_oneshot_s={mixed['cold_oneshot_s']:.3f};"
+        f"warm_mixed_s={mixed['warm_mixed_s']:.3f};"
+        f"speedup={mixed['mixed_warm_speedup']:.2f};"
+        f"canonical_hit_rate={mixed['canonical_hit_rate']:.2f}")
+
+
+def tracing_gate(tracing: Dict) -> List[str]:
+    if tracing["throughput_ratio"] < TRACING_MIN_RATIO:
+        return [f"tracing on/off warm throughput ratio "
+                f"{tracing['throughput_ratio']:.3f} < {TRACING_MIN_RATIO}"]
+    return []
+
+
+def tracing_line(tracing: Dict) -> str:
+    return csv_line(
+        "service_tracing_overhead", tracing["enabled_warm_s"],
+        f"disabled_warm_s={tracing['disabled_warm_s']:.3f};"
+        f"enabled_warm_s={tracing['enabled_warm_s']:.3f};"
+        f"throughput_ratio={tracing['throughput_ratio']:.3f};"
+        f"spans={tracing['traced_spans']}")
+
+
 def gate(windows: Dict, tracing: Dict) -> List[str]:
     failures = []
     if windows["windowed_warm_speedup"] < MIN_WARM_SPEEDUP:
         failures.append(f"windowed warm speedup "
                         f"{windows['windowed_warm_speedup']:.2f} < "
                         f"{MIN_WARM_SPEEDUP}")
-    if tracing["throughput_ratio"] < TRACING_MIN_RATIO:
-        failures.append(f"tracing on/off warm throughput ratio "
-                        f"{tracing['throughput_ratio']:.3f} < "
-                        f"{TRACING_MIN_RATIO}")
-    return failures
+    return failures + tracing_gate(tracing)
 
 
 def main(argv=None) -> int:
@@ -204,11 +366,7 @@ def main(argv=None) -> int:
                  f"warm_windowed_s={w['warm_windowed_s']:.3f};"
                  f"speedup={w['windowed_warm_speedup']:.2f};"
                  f"reused={w['warm_reused_handles']}/{w['n_queries']}"),
-        csv_line("service_tracing_overhead", t["enabled_warm_s"],
-                 f"disabled_warm_s={t['disabled_warm_s']:.3f};"
-                 f"enabled_warm_s={t['enabled_warm_s']:.3f};"
-                 f"throughput_ratio={t['throughput_ratio']:.3f};"
-                 f"spans={t['traced_spans']}"),
+        tracing_line(t),
     ]
     return finish(lines, gate(w, t))
 

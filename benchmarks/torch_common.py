@@ -5,21 +5,30 @@ from __future__ import annotations
 
 import argparse
 import subprocess
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 from common import save_result
 
 
-def parse_device(argv=None, description: str = ""):
+def parse_args(argv=None, description: str = "",
+               add: Optional[Callable] = None):
     """The bench's command line: ``--device`` (default cuda), resolved
-    to a ``torch.device``; without a GPU the default raises."""
+    to a ``torch.device`` (without a GPU the default raises), and the
+    flags ``add(parser)`` declares; returns (device, parsed args)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
+    if add is not None:
+        add(ap)
     args = ap.parse_args(argv)
     from repro_torch.device import cli_device
 
-    return cli_device(args.device)
+    return cli_device(args.device), args
+
+
+def parse_device(argv=None, description: str = ""):
+    """:func:`parse_args` for a bench whose only flag is ``--device``."""
+    return parse_args(argv, description)[0]
 
 
 def device_record(device) -> Dict:

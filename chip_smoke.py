@@ -86,8 +86,10 @@ runs one group (for bring-up: ``relational`` leaves out A0 and A,
 the decoder and the two attention wrappers); ``--only sharded`` runs M
 and ``--only dryrun`` D alone (their kernels lines carry launches
 only); ``--only surfaces`` runs E1-E4, and ``--only benches``
-runs the four other bench scripts on the card (not part of the whole
-run); with no argument every other phase runs.  ``--only timings --tree
+runs the other bench scripts on the card at the JAX benches' sizes and
+the macro bench at SF1 (not part of the whole run; its kernels line
+carries each kernel's launches by bench); with no argument every other
+phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
 one's can be timed in turns on one card.  It prints one
@@ -2850,41 +2852,71 @@ def surfaces_phase(cuda, smi: str) -> dict:
 
 
 def scalars(out: dict) -> dict:
-    """A bench result's numbers and strings, and those of each row of
-    its lists of rows; the per-query lists are left out."""
+    """A bench result's numbers and strings, and those of its nested
+    results (rows, windows); the per-query lists are left out."""
     keep = {}
     for k, v in out.items():
         if isinstance(v, list) and v and isinstance(v[0], dict):
             keep[k] = [scalars(row) for row in v]
-        elif not isinstance(v, (list, dict)):
+        elif isinstance(v, dict):
+            keep[k] = scalars(v)
+        elif not isinstance(v, list):
             keep[k] = v
     return keep
 
 
 BENCHES = ("torch_bench_filter_micro", "torch_bench_window_batch",
-           "torch_bench_service", "torch_bench_subsumption")
+           "torch_bench_service", "torch_bench_subsumption",
+           "torch_bench_mckp", "torch_bench_projection_micro",
+           "torch_bench_window", "torch_bench_macro_tpcds",
+           "torch_bench_batch_reuse", "torch_bench_canonical",
+           "torch_bench_partition", "torch_bench_resilience",
+           "torch_bench_telemetry", "torch_bench_serving_prefix",
+           "torch_bench_macro_tpcds@SF1")
 
 
-def benches_phase(cuda, smi: str) -> None:
-    """The four other bench scripts on the card, at their defaults: each
-    one's correctness checks raise; its speed gate is printed."""
+def bench_outputs(mod, name: str, cuda) -> tuple:
+    """One bench at its JAX defaults on the card: (its results, its
+    gate's failures).  ``...@SF1`` is the macro bench's RAM profile with
+    ``store_sales`` at SF1."""
+    if name.endswith("@SF1"):
+        return (mod.run(cuda, scale_rows=SF1_STORE_SALES_ROWS,
+                        name="macro_tpcds_sf1"),), []
+    if name == "torch_bench_service":
+        outs = (mod.run(cuda), mod.run_tracing_overhead(cuda))
+        return outs, mod.gate(*outs)
+    if name == "torch_bench_macro_tpcds":
+        return (mod.run(cuda), mod.run_disk_profile(cuda)), []
+    if name == "torch_bench_projection_micro":
+        return (mod.run(cuda), mod.run_fused_vs_eager(cuda)), []
+    out = mod.run(cuda)
+    return (out,), (mod.gate(out) if hasattr(mod, "gate") else [])
+
+
+def benches_phase(cuda, smi: str) -> dict:
+    """The bench scripts on the card, at the JAX benches' defaults (the
+    async bench is E3's), and the macro bench at SF1: each one's
+    correctness checks raise; its figures, launches, seconds and gate
+    are printed.  Returns each bench's launches by kernel wrapper."""
+    from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.filter_project import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
 
     sys.path.insert(0, str(ROOT / "benchmarks"))
+    by_bench = {}
     for name in BENCHES:
-        mod = __import__(name)
-        K.reset_launches()
+        mod = __import__(name.split("@")[0])
+        for counters in (K, DK, FK):
+            counters.reset_launches()
         t0 = time.perf_counter()
-        if name == "torch_bench_service":
-            outs = (mod.run(cuda), mod.run_tracing_overhead(cuda))
-            failures = mod.gate(*outs)
-        else:
-            outs = (mod.run(cuda),)
-            failures = mod.gate(outs[0])
+        outs, failures = bench_outputs(mod, name, cuda)
+        seconds = time.perf_counter() - t0
+        by_bench[name] = {**K.LAUNCHES, **DK.LAUNCHES, **FK.LAUNCHES}
         summary = json.dumps([scalars(o) for o in outs])
-        log(f"bench {name}: {summary}; launches {dict(K.LAUNCHES)}; gate "
+        log(f"bench {name}: {summary}; launches {by_bench[name]}; gate "
             f"{'holds' if not failures else 'fails: ' + '; '.join(failures)}"
-            f"; {time.perf_counter() - t0:.1f} s [{smi}]")
+            f"; {seconds:.1f} s [{smi}]")
+    return by_bench
 
 
 def relational_phases(cuda, smi: str, main_path_too: bool = True,
@@ -4115,8 +4147,9 @@ def main(argv=None) -> int:
             cuda, smi))
     if args.only in (None, "surfaces"):
         surfaces = phase("surfaces", lambda: surfaces_phase(cuda, smi))
+    benches = None
     if args.only == "benches":
-        phase("benches", lambda: benches_phase(cuda, smi))
+        benches = phase("benches", lambda: benches_phase(cuda, smi))
     if args.only in (None, "attention", "serving", "families", "training"):
         kernels += phase("attention", lambda: attention_phases(
             cuda, smi, serve=args.only in (None, "serving"),
@@ -4134,6 +4167,15 @@ def main(argv=None) -> int:
         kernels = [dict(name=name, route="cuda", source=src, replaces=line,
                         launches=counts.get(counted, 0), path=args.only,
                         launches_by_path={})
+                   for name, src, line, counted in M_KERNELS]
+    if args.only == "benches":
+        # each kernel's launches by bench, no timings
+        kernels = [dict(name=name, route="cuda", source=src, replaces=line,
+                        launches=sum(b.get(counted, 0)
+                                     for b in benches.values()),
+                        path="benches",
+                        launches_by_path={bench: b.get(counted, 0)
+                                          for bench, b in benches.items()})
                    for name, src, line, counted in M_KERNELS]
     for name, key in (("surfaces", surfaces), ("sharded", sharded),
                       ("dryrun", dryrun)):

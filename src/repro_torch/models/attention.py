@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.decode_attention.ops import decode
-from ..kernels.flash_attention.ops import attention
+from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
 from .common import (ParamSpec, apply_rope, reduce_row_parallel, rmsnorm,
                      rmsnorm_spec)
@@ -161,9 +161,32 @@ def mla_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     v = _split_heads(ckv @ p["v_up"], h)
     k = torch.cat([k_nope, k_rope.expand(b, h, t, rope)], dim=-1)
     q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
-    out = mha_ref(q_full, k, v, causal=True,
-                  sm_scale=1.0 / ((nope + rope) ** 0.5))
-    return out.transpose(1, 2).reshape(b, t, h * vd) @ p["wo"]
+    out = _mha_local(q_full, k, v, causal=True,
+                     sm_scale=1.0 / ((nope + rope) ** 0.5))
+    return reduce_row_parallel(
+        out.transpose(1, 2).reshape(b, t, h * vd) @ p["wo"])
+
+
+def _mha_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
+               ) -> torch.Tensor:
+    """``mha_ref``; on DTensors, on each rank's local heads: q, k and v
+    are placed as the flash route places them (batch shards kept, heads
+    split where they divide, partial sums reduced there, as GSPMD's
+    all-reduce before attention does) and each rank attends over its
+    own (batch, head) slices, which need nothing from another rank.
+    DTensor's own propagation of the einsums would merge the batch and
+    head dims into a strided shard, whose offsets it computes from a
+    tensor that a fake tensor cannot read."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(q, DTensor):
+        return mha_ref(q, k, v, **kw)
+    qp, kvp = _head_placements(q, k.shape[1])
+    mesh = q.device_mesh
+    out = mha_ref(q.redistribute(mesh, qp).to_local(),
+                  k.redistribute(mesh, kvp).to_local(),
+                  v.redistribute(mesh, kvp).to_local(), **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,

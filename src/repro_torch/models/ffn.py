@@ -20,13 +20,33 @@ tokens and one all-reduce over the model axis sums the partial outputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, reduce_row_parallel
+from .common import ParamSpec, _is_dtensor, reduce_row_parallel
 from .config import ArchConfig
+
+
+@functools.cache
+def _register_searchsorted_sharding() -> None:
+    """Gives DTensor, which has none, a sharding strategy for
+    ``aten.searchsorted.Tensor``, once: a 1-D sorted sequence is
+    replicated and the values keep their own placement.  Routing a
+    DTensor of router logits (an SPMD rank, the dry run) needs it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.searchsorted.Tensor)
+    def _strategy(sorted_sequence, values, *args, **kwargs):
+        rep = Replicate()
+        out = [([rep], [rep, rep])]
+        if sorted_sequence.ndim == 1:
+            out += [([Shard(d)], [rep, Shard(d)])
+                    for d in range(values.ndim)]
+        return out
 
 
 def dense_specs(cfg: ArchConfig, d_ff: int | None = None
@@ -79,6 +99,8 @@ def route(cfg: ArchConfig, logits: torch.Tensor) -> Routing:
     (S, E), exactly as the JAX package's ``moe_forward``."""
     s = logits.shape[0]
     e, k = cfg.n_experts, cfg.top_k
+    if _is_dtensor(logits):
+        _register_searchsorted_sharding()
     gates = torch.softmax(logits.float(), dim=-1)
     top_vals, top_idx = torch.topk(gates, k, dim=-1)       # (S, k)
     top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
@@ -116,6 +138,35 @@ def combine(contrib: torch.Tensor, order: torch.Tensor, s: int, k: int
     return out
 
 
+def _whole_capacity(t: torch.Tensor) -> torch.Tensor:
+    """``t`` of (E, C, d), and its gradient, with the capacity dim
+    gathered where a DTensor splits it; anything else as it is.  DTensor
+    flattens a split inner dim into a strided shard, whose row offsets
+    it computes from a tensor that a fake tensor cannot read; the
+    (E, C, d) <-> (E * C, d) slot reshapes (and their gradients) would
+    hit that."""
+    return _WholeCapacity.apply(t) if _is_dtensor(t) else t
+
+
+def _gather_dim1(t):
+    from torch.distributed.tensor import Replicate, Shard
+
+    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+           for pl in t.placements]
+    return t if pls == list(t.placements) else \
+        t.redistribute(t.device_mesh, pls)
+
+
+class _WholeCapacity(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return _gather_dim1(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim1(g)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                 ) -> torch.Tensor:
     b, t, d = x.shape
@@ -128,13 +179,13 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
 
     # token -> slot scatter; every dropped entry lands, zeroed, in the
     # dump row E * capacity, which is cut off
-    buf = torch.zeros((e * cap + 1, d), dtype=dtype, device=x.device)
+    buf = xf.new_zeros((e * cap + 1, d), dtype=dtype)
     buf[r.slot] = xf[r.sorted_tok] * keep
-    expert_in = buf[:-1].reshape(e, cap, d)
+    expert_in = _whole_capacity(buf[:-1].reshape(e, cap, d))
 
     h = F.silu(torch.bmm(expert_in, p["w1"])) * torch.bmm(expert_in,
                                                          p["w3"])
-    out_e = torch.bmm(h, p["w2"]).reshape(e * cap, d)
+    out_e = _whole_capacity(torch.bmm(h, p["w2"])).reshape(e * cap, d)
 
     gathered = out_e[torch.clamp(r.slot, max=e * cap - 1)] * keep
     contrib = gathered * r.top_vals.reshape(s * k)[r.order][:, None].to(

@@ -1,0 +1,97 @@
+"""The port's dry run on the MoE and MLA configurations
+(``repro_torch.launch.dryrun``): llama4-scout routes its tokens through
+``searchsorted`` on DTensors, deepseek-v2's MLA attends through the
+plain attention on each rank's heads.  Each cell runs in a subprocess
+of its own (the fake process group belongs to the process), as in
+``tests/test_torch_dryrun.py``; a file of its own so that the cells
+can run beside that file's."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+REFERENCE_OPS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                 "collective-permute"}
+
+
+def _port_cell(arch: str, shape: str) -> dict:
+    code = f"""
+        import json
+        from repro_torch.launch.dryrun import run_cell
+        r = run_cell("{arch}", "{shape}", multi_pod=False, save=False)
+        print("RESULT_JSON:" + json.dumps(r, default=str))
+    """
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("RESULT_JSON:")][0]
+    r = json.loads(line[len("RESULT_JSON:"):])
+    assert r["status"] == "ok", (r.get("error"), r.get("traceback"))
+    assert r["chips"] == 256
+    assert r["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert set(r["collectives"]) <= REFERENCE_OPS
+    assert r["collective_bytes_per_device"] == sum(r["collectives"].values())
+    assert r["memory"]["peak_bytes_per_device_est"] > 0
+    return r
+
+
+def test_llama4_scout_decode_cell():
+    """One decode kernel a layer, and its flop formula's count of them:
+    the 128 rows split 16 ways over ``data``, the 40 q heads whole on
+    every model rank (they do not split 16 ways), every one of the
+    32,768 cache slots, 4 D flops a slot.  The JAX package's partitioned
+    HLO holds the same products but splits each kv head's 128-wide dim
+    over the two model ranks of its group of 5 q heads (a dot of
+    f32[8, 5, 32768] over 64): its attention is a sixteenth of the
+    port's, and every other product is equal."""
+    from repro_torch.configs import get_config
+    from test_torch_dryrun import _REFERENCE, _run
+
+    cfg = get_config("llama4-scout-17b-a16e")
+    r = _port_cell("llama4-scout-17b-a16e", "decode_32k")
+    assert r["kernel_calls"] == {"decode_attention": cfg.n_layers}
+    rows, slots = 128 // 16, 32768
+    attention = cfg.n_layers * 4 * rows * cfg.n_heads * slots * cfg.head_dim
+    assert attention < r["flops_per_device"] < 2 * attention
+    assert r["tokens_per_step"] == 128 and r["step_kind"] == "decode"
+
+    ref = _run(_REFERENCE.replace('"granite-8b", "decode_32k"',
+                                  '"llama4-scout-17b-a16e", "decode_32k"'))
+    assert ref["status"] == "ok" and ref["chips"] == 256
+    group = cfg.n_heads // cfg.n_kv_heads
+    ref_attention = cfg.n_layers * 4 * rows * group * slots \
+        * (cfg.head_dim // 2)
+    assert attention == 16 * ref_attention
+    assert r["flops_per_device"] - attention \
+        == ref["dot_flops"] - ref_attention
+
+
+def test_deepseek_v2_prefill_cell():
+    """MLA attends through the plain attention on each rank's heads, as
+    the JAX package's does: no kernel call; its products are counted on
+    the rank's 2 rows and 8 of 128 heads, causal over 32,768 tokens."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v2-236b")
+    r = _port_cell("deepseek-v2-236b", "prefill_32k")
+    assert r["kernel_calls"] == {}
+    t, heads, rows = 32768, cfg.n_heads // 16, 32 // 16
+    d_qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    # q k^T and p v over every (query, key) pair: the plain attention
+    # multiplies the whole square and masks it; the projections and the
+    # experts of the rank's 65,536 tokens add less than as much again
+    attention = cfg.n_layers * 2 * rows * heads * t * t * (d_qk
+                                                           + cfg.v_head_dim)
+    assert attention < r["flops_per_device"] < 2 * attention
+    assert r["tokens_per_step"] == 32 * 32768 and r["step_kind"] == "prefill"
