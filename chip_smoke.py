@@ -29,7 +29,8 @@ process per source, all at once) and drives both of the port's paths:
   decoded alone (bitwise), and times them at the serving path's shapes
   beside the plain version and ``scaled_dot_product_attention``, with
   the profiler's device time of the one kernel each call launches;
-* serving (S2): serves granite-8b at full width through the prefix-cache
+* serving (S2): serves granite-8b at full width (8 of its 36 layers)
+  through the prefix-cache
   MQO engine three times (no MQO, MQO cold, MQO warm), which must
   generate the same tokens and take the MQO decisions computed on the
   CPU, and checks ``Model.forward`` with the flash kernel against the
@@ -51,7 +52,8 @@ process per source, all at once) and drives both of the port's paths:
   tokens/s, the model FLOP/s share, peak memory and one profiled step
   (T1); and runs the JAX package's fault-tolerance tests on the card:
   a preempted, resumed run equals an uninterrupted one bitwise (T2);
-* surfaces (E1-E4), after the relational phases: the three examples
+* surfaces (E1-E4), after the relational phases (E1, E2 and E4 are
+  processes of their own, started together): the three examples
   (``examples/torch_*.py``) on the card and on the CPU, whose printed
   lines must agree apart from times, rates and speedups (E1); the
   analytics server at SF1 on the card (E2); the async bench
@@ -92,7 +94,11 @@ carries each kernel's launches by bench); with no argument every other
 phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
-one's can be timed in turns on one card.  It prints one
+one's can be timed in turns on one card; ``--only serving|families|
+training --tree DIR`` runs S2, S3 or T0-T2 on that checkout's port
+(without S1), whose generations' digests and T1 / T2 figures the same
+phases of this checkout must equal where the single-device path is
+unchanged.  It prints one
 line per phase and each phase's seconds.  The line before the last is
 the kernels' JSON; the last line is the device JSON.  Any failure exits
 non-zero; without CUDA it exits non-zero before any result.  The script
@@ -102,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import math
 import os
@@ -135,6 +142,14 @@ F32_RTOL = 1e-5                    # card vs CPU f32 aggregates (see below)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(label: str, fn):
+    """``fn()``, after which a line gives ``label`` and its seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1388,15 +1403,24 @@ def async_phases(cuda, smi: str, want_passes) -> dict:
 # kernel-test tolerance) and bf16 outputs by one bf16 ulp of values
 # below 4 (3e-2, likewise).
 ATTN_ATOL = {"torch.float32": 2e-5, "torch.bfloat16": 3e-2}
+# the decode kernel's log-sum-exp against its plain version's: both f32
+# from the same f32 logits (bf16 inputs widen exactly), summed in another
+# order over up to 8,192 keys; a wrong max or a missing log moves it by
+# about a unit
+LSE_ATOL = 1e-4
 # Full-model logits, flash kernel against plain attention, both bf16 on
 # the card: the two attentions round to bf16 apart by at most one ulp
-# per element, and 36 bf16 layers carry that on; the logits must agree
+# per element, and the bf16 layers carry that on; the logits must agree
 # within 5% of the largest logit (a wrong mask or head mapping moves
 # them by its whole size).
 FORWARD_RTOL = 0.05
 SERVE_SEED = 0
 SERVE_BUDGET, SERVE_K = 64 << 20, 2    # prefix pool bytes, SE threshold
 GRANITE_LAYERS = 36
+# S2 serves SERVE_LAYERS of them: the engine prefills one decode step a
+# token and a step is host-bound (about 2 ms a layer), so the 3,644
+# steps of the three runs took 290 s of the script at all 36 layers
+SERVE_LAYERS = 8
 
 
 def _randn(shape, dtype, device, gen):
@@ -1413,8 +1437,10 @@ def attention_sweep(device) -> dict:
     (B, T, H, D) views ``gqa_forward`` hands it; and at granite-8b's
     heads, decode over an 8192-slot cache at 8192 and 1 live keys and the
     forward at T = S = 1024 causal and at T = 64 < S = 1000 with a
-    window.  Returns the worst error and case count per kernel; raises
-    on an error above ATTN_ATOL."""
+    window.  Every decode case also asks for the log-sum-exp, with its
+    first row's keys all dead (-inf, zero output).  Returns the worst
+    error and case count per kernel and of the log-sum-exp; raises on
+    an error above ATTN_ATOL (LSE_ATOL)."""
     import torch
 
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -1423,8 +1449,23 @@ def attention_sweep(device) -> dict:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    worst = {"decode_attention": 0.0, "flash_attention": 0.0}
-    cases = {"decode_attention": 0, "flash_attention": 0}
+    worst = {"decode_attention": 0.0, "flash_attention": 0.0, "lse": 0.0}
+    cases = {"decode_attention": 0, "flash_attention": 0, "lse": 0}
+
+    def check_lse(got, want, what):
+        torch.cuda.synchronize()
+        dead = torch.isneginf(want)
+        if not (torch.equal(torch.isneginf(got), dead)
+                and torch.isfinite(got[~dead]).all()):
+            raise AssertionError(f"decode_attention's lse is -inf where its "
+                                 f"plain version's is not, or not finite, "
+                                 f"at {what}")
+        err = float((got[~dead] - want[~dead]).abs().max())
+        if not err <= LSE_ATOL:
+            raise AssertionError(f"decode_attention's lse disagrees with its "
+                                 f"plain version's by {err} at {what}")
+        worst["lse"] = max(worst["lse"], err)
+        cases["lse"] += 1
 
     def check(name, got, want, dtype, what):
         torch.cuda.synchronize()
@@ -1436,11 +1477,21 @@ def attention_sweep(device) -> dict:
         cases[name] += 1
 
     def decode_case(q, k, v, kv_len, dtype, what):
+        # the log-sum-exp too, with the first row's keys all dead
+        dead = kv_len.clone()
+        dead[0] = 0
         for window in (None, 48):
             check("decode_attention",
                   DK.decode_attention(q, k, v, kv_len, window=window),
                   decode_ref(q, k, v, kv_len, window=window), dtype,
                   f"{what} window={window}")
+            out, lse = DK.decode_attention(q, k, v, dead, window=window,
+                                           return_lse=True)
+            want, want_lse = decode_ref(q, k, v, dead, window=window,
+                                        return_lse=True)
+            check("decode_attention", out, want, dtype,
+                  f"{what} window={window} with lse")
+            check_lse(lse, want_lse, f"{what} window={window}")
 
     def flash_case(q, k, v, dtype, what, masks):
         for causal, window in masks:
@@ -1537,6 +1588,152 @@ def attention_bitwise(device) -> list:
     return done
 
 
+SPLIT_SHARDS = (2, 16)
+LONG_SLOTS = 524_288                 # a gemma3-1b long_500k row
+ZIGZAG_T, ZIGZAG_C = 4096, 4         # gemma3-1b's query chunks: c = 4
+# The key-split merges draw q at SPLIT_PEAK times unit scale, so that
+# each head's scaled logits have a standard deviation of SPLIT_PEAK and
+# its softmax rests on a few keys: the outputs are a few v rows, not
+# averages of 10^5 keys that lie below ATTN_ATOL whatever the merge
+# does, and the shards' log-sum-exps differ by units.  v is drawn at
+# SPLIT_V times unit scale, so that the outputs stay near 1 in size and
+# their bf16 roundings (half an ulp of each shard's output and of the
+# unsplit one) stay well inside ATTN_ATOL.  Two wrong merges serve as
+# controls and must miss ATTN_ATOL: the shards' outputs weighed equally,
+# and the merge without each row's heaviest shard.
+SPLIT_PEAK, SPLIT_V = 8.0, 0.25
+
+
+def attention_splits(device) -> list:
+    """The sharded routes' arithmetic on the card, against the unsplit
+    kernel: decode over 2 and 16 key shards merged by their log-sum-exps
+    (``decode_attention.ops.merge_key_shards``) at S2's shapes (granite-
+    8b's heads, 8 rows x 272 live keys), over its 1024-slot cache split
+    evenly as the route splits it (the later shards hold no live key)
+    and over the 272 live slots (every shard holds some), and at one
+    524,288-slot gemma3-1b row (4 q heads over one kv head of 256), each
+    with the two wrong merges of SPLIT_PEAK as controls (q and v
+    scaled as SPLIT_PEAK says); the shards are
+    views of the cache, which the kernel reads in place (``kv_strides``),
+    and a view narrowed to one kv head and a slot range gives the bits
+    of its contiguous copy; and gemma3-1b's zig-zag query chunks
+    (``flash_attention.ops.zigzag_chunks``, T = S = 4096, c = 4, every
+    rank's two chunks against their key prefixes, with and without its
+    512 window) against the rows of one causal forward.  bf16; each
+    within ATTN_ATOL.  Returns what was checked; raises on a larger
+    error, on a control within it, or on a copied view."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ops import merge_key_shards
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import zigzag_chunks
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    bf16, tol = torch.bfloat16, ATTN_ATOL["torch.bfloat16"]
+    done = []
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    def max_err(a, b):
+        torch.cuda.synchronize()
+        return float((a - b).abs().max())
+
+    g = get_config("gemma3-1b")
+    for label, (b, hq, hkv, d, slots, live, span) in (
+            ("S2 granite-8b, 1024 slots", (8, 32, 8, 128, 1024, 272, 1024)),
+            ("S2 granite-8b, 272 live slots", (8, 32, 8, 128, 1024, 272,
+                                               272)),
+            ("gemma3-1b long row", (1, g.n_heads, g.n_kv_heads, g.head_dim,
+                                    LONG_SLOTS, LONG_SLOTS, LONG_SLOTS))):
+        q = _randn((b, hq, d), torch.float32, device, gen)
+        q = (q * SPLIT_PEAK).to(bf16)
+        k = _randn((b, hkv, slots, d), bf16, device, gen)
+        v = _randn((b, hkv, slots, d), torch.float32, device, gen)
+        v = (v * SPLIT_V).to(bf16)
+        kv_len = torch.full((b,), live, dtype=torch.int32, device=device)
+        whole = DK.decode_attention(q, k, v, kv_len).float()
+        scale = float(whole.abs().max())
+        for n in SPLIT_SHARDS:
+            size = span // n
+            views = [(k.narrow(2, i * size, size), v.narrow(2, i * size, size))
+                     for i in range(n)]
+            if b > 1 and any(DK.kv_strides(kk, vv) is None
+                             for kk, vv in views):
+                raise AssertionError(f"{label}: the kernel would copy a "
+                                     f"shard's view of the cache")
+            parts = [DK.decode_attention(
+                q, kk, vv, (kv_len - i * size).clamp(0, size),
+                return_lse=True) for i, (kk, vv) in enumerate(views)]
+            outs = torch.stack([o for o, _ in parts]).float()
+            lses = torch.stack([x for _, x in parts])
+            err = max_err(merge_key_shards(outs, lses, stacked), whole)
+            if not err <= tol:
+                raise AssertionError(f"{label}: {n} key shards merged differ "
+                                     f"from the unsplit kernel by {err}")
+            line = (f"{label}, {n} key shards: max |err| {err:.3g} of max "
+                    f"|out| {scale:.3g}")
+            live_shards = torch.isfinite(lses)
+            if int(live_shards.sum(0).min()) >= 2:
+                w = live_shards.float()[..., None]
+                equal = (outs * w).sum(0) / w.sum(0)
+                top = torch.nn.functional.one_hot(
+                    lses.argmax(0), n).permute(2, 0, 1).bool()
+                dropped = merge_key_shards(
+                    outs, lses.masked_fill(top, float("-inf")), stacked)
+                controls = (max_err(equal, whole), max_err(dropped, whole))
+                if not min(controls) > tol:
+                    raise AssertionError(
+                        f"{label}, {n} key shards: a wrong merge passes "
+                        f"the limit (equal weights {controls[0]}, heaviest "
+                        f"shard dropped {controls[1]})")
+                line += (f"; controls: equal weights {controls[0]:.3g}, "
+                         f"heaviest shard dropped {controls[1]:.3g}")
+            done.append(line)
+        del views, parts, outs, lses
+        if b > 1:
+            # one kv head's slot range, as a rank narrows its replica
+            kk, vv = k.narrow(1, 3, 1).narrow(2, 136, 136), \
+                v.narrow(1, 3, 1).narrow(2, 136, 136)
+            qq = q[:, 3 * (hq // hkv):4 * (hq // hkv)].contiguous()
+            lens = (kv_len - 136).clamp(0, 136)
+            if DK.kv_strides(kk, vv) is None or not torch.equal(
+                    DK.decode_attention(qq, kk, vv, lens),
+                    DK.decode_attention(qq, kk.contiguous(), vv.contiguous(),
+                                        lens)):
+                raise AssertionError(f"{label}: a view of kv head 3, slots "
+                                     f"136-271, read in place differs from "
+                                     f"its contiguous copy")
+            done.append(f"{label}: kv head 3, slots 136-271 read in place, "
+                        f"bitwise equal to its contiguous copy")
+        del q, k, v, whole
+    t, d = ZIGZAG_T, g.head_dim
+    q = _randn((1, g.n_heads, t, d), bf16, device, gen)
+    k = _randn((1, g.n_kv_heads, t, d), bf16, device, gen)
+    v = _randn((1, g.n_kv_heads, t, d), bf16, device, gen)
+    for window in (None, g.window):
+        whole = FK.flash_attention(q, k, v, causal=True, window=window)
+        err = 0.0
+        for shard in range(ZIGZAG_C):
+            for a, rows, lo, hi in zigzag_chunks(t, t, ZIGZAG_C, shard,
+                                                 window):
+                part = FK.flash_attention(q[:, :, a:a + rows],
+                                          k[:, :, lo:hi], v[:, :, lo:hi],
+                                          causal=True, window=window)
+                torch.cuda.synchronize()
+                err = max(err, float((part.float() - whole[
+                    :, :, a:a + rows].float()).abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"zig-zag chunks (window {window}) differ "
+                                 f"from the unsplit forward by {err}")
+        done.append(f"gemma3-1b zig-zag chunks, T = {t}, c = {ZIGZAG_C}, "
+                    f"window {window}: max |err| {err:.3g}")
+    return done
+
+
 DECODE_MARK = "decode_attention_kernel"
 PROFILE_SESSIONS = 4                # S1's profiler sessions at most
 PROFILE_WINDOWS, PROFILE_REPS = 3, 20   # device_kernels' defaults
@@ -1554,7 +1751,11 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
     ``launched()`` reads the wrapper's launch counter."""
     import torch
 
-    err = float((kern().float() - plain().float()).abs().max())
+    def first(x):           # the output of a call that returns more
+        return x[0] if isinstance(x, tuple) else x
+
+    err = float((first(kern()).float() - first(plain()).float())
+                .abs().max())
     torch.cuda.synchronize()
     if not err <= ATTN_ATOL["torch.bfloat16"]:
         raise AssertionError(f"kernel disagrees at {shape}: {err}")
@@ -1628,18 +1829,24 @@ def attention_timings(device) -> dict:
         v = _randn((b, hkv, 1024, d), bf16, device, gen)
         for live in lives:
             kv_len = torch.full((b,), live, dtype=torch.int32, device=device)
-            key = f"decode_attention/kv{live}" + ("" if b == 1 else f"/b{b}")
-            out[key] = _timing(
-                lambda: DK.decode_attention(q, k, v, kv_len),
-                lambda: decode_ref(q, k, v, kv_len),
-                lambda: F.scaled_dot_product_attention(
-                    q[:, :, None], k[:, :, :live], v[:, :, :live],
-                    enable_gqa=True),
-                b * (2 * q[0].numel() * 2 + 2 * hkv * live * d * 2 + 4),
-                b * 4 * hq * live * d,
-                f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) bf16, "
-                f"kv_len {live}", (DECODE_MARK,),
-                lambda: DK.LAUNCHES["decode_attention"])
+            key = f"kv{live}" + ("" if b == 1 else f"/b{b}")
+            # with the log-sum-exp (the key-split route's call) too: it
+            # adds one f32 a row and query head to the bytes
+            for lse in (False, True):
+                out["decode_attention/" + ("lse/" if lse else "") + key] = \
+                    _timing(
+                    lambda: DK.decode_attention(q, k, v, kv_len,
+                                                return_lse=lse),
+                    lambda: decode_ref(q, k, v, kv_len, return_lse=lse),
+                    lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], k[:, :, :live], v[:, :, :live],
+                        enable_gqa=True),
+                    b * (2 * q[0].numel() * 2 + 2 * hkv * live * d * 2 + 4
+                         + 4 * hq * lse),
+                    b * 4 * hq * live * d,
+                    f"q ({b}, {hq}, {d}), cache ({b}, {hkv}, 1024, {d}) "
+                    f"bf16, kv_len {live}" + (", with lse" if lse else ""),
+                    (DECODE_MARK,), lambda: DK.LAUNCHES["decode_attention"])
     def flash(key, hq, hkv, d, t, window=None, b=1):
         q = _randn((b, hq, t, d), bf16, device, gen)
         k = _randn((b, hkv, t, d), bf16, device, gen)
@@ -1909,8 +2116,12 @@ def serve_model(tag: str, cfg, make_requests, device, smi: str, *,
             raise AssertionError(f"{tag} {cfg.name}: forward with the "
                                  f"flash kernel differs from the plain "
                                  f"attention")
+    # a digest of the generated tokens, which two checkouts' runs compare
+    digest = hashlib.sha256(b"".join(np.asarray(o, dtype=np.int64).tobytes()
+                                     for o in base)).hexdigest()[:16]
     log(f"{tag} {cfg.name}: generations bitwise equal across no-MQO / MQO "
-        f"cold / MQO warm; MQO decisions equal the CPU's ({want['n_ses']} "
+        f"cold / MQO warm (digest {digest}); MQO decisions equal the "
+        f"CPU's ({want['n_ses']} "
         f"SEs, {len(want['selected'])} selected, {want['pool_used']} B); "
         f"decode_attention launched {launches['decode_attention']} times "
         f"= {n_attn} x {steps} decode steps"
@@ -1925,16 +2136,19 @@ def serve_model(tag: str, cfg, make_requests, device, smi: str, *,
 
 
 def serving_path(device, smi: str) -> dict:
-    """Phase S2: granite-8b, all 36 layers, through :func:`serve_model`
-    with the profiled window; returns the launch counts."""
+    """Phase S2: granite-8b at full width, SERVE_LAYERS of its 36
+    layers, through :func:`serve_model` with the profiled window;
+    returns the launch counts."""
     from repro_torch.configs import get_config
 
-    cfg = replace(get_config("granite-8b"), attn_impl="pallas")
-    if cfg.n_layers != GRANITE_LAYERS:
+    full = replace(get_config("granite-8b"), attn_impl="pallas")
+    if full.n_layers != GRANITE_LAYERS:
         raise AssertionError("granite-8b is not the 36-layer config")
+    cfg = replace(full, n_layers=SERVE_LAYERS)
     return serve_model("serving", cfg, serving_requests, device, smi,
-                       cut="all layers", block=64, max_len=1024,
-                       profile=True)
+                       cut=f"{SERVE_LAYERS} of {GRANITE_LAYERS} layers, "
+                           f"depth cut to fit the script's time",
+                       block=64, max_len=1024, profile=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1944,11 +2158,11 @@ def serving_path(device, smi: str) -> dict:
 # The two MoE models' whole stacks do not fit one card (215.5 GB and
 # 453.5 GB of bf16 parameters): llama4-scout keeps 6 of its 48 layers,
 # deepseek-v2 4 of its 60 (its dense first layer and 3 MoE layers).
-# falcon-mamba-7b keeps 32 of 64 and recurrentgemma-9b 18 of 38 (6
-# repeats of its pattern) so that phase M fits the script's time: their
-# host-bound decode steps took 112-214 s of it whole.  Widths are the
-# published ones.
-FAMILIES = (("falcon-mamba-7b", 32), ("recurrentgemma-9b", 18),
+# falcon-mamba-7b keeps 16 of 64 and recurrentgemma-9b 9 of 38 (3
+# repeats of its pattern) so that the script fits its time: their
+# host-bound decode steps took 112-214 s of it whole, and 67 s at 32
+# and 18 layers.  Widths are the published ones.
+FAMILIES = (("falcon-mamba-7b", 16), ("recurrentgemma-9b", 9),
             ("llama4-scout-17b-a16e", 6), ("deepseek-v2-236b", 4))
 PROFILED_FAMILIES = ("falcon-mamba-7b", "llama4-scout-17b-a16e")
 # The -smoke configs in f32, on the card against the CPU from the same
@@ -2662,19 +2876,32 @@ def first_disagreement(a: str, b: str):
 def start_surface(target: str, args, device: str, threads=None):
     """Start ``target`` (a script path or a module name) with ``args``
     and ``--device device`` in a fresh process from the repository's
-    root; returns the process."""
+    root; returns the process.  Its output goes to temporary files, so
+    that processes started together never wait on a full pipe."""
+    import tempfile
+
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     if threads:
         env["OMP_NUM_THREADS"] = str(threads)
     path = str(ROOT / target) if target.endswith(".py") else target
+    files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
     proc = subprocess.Popen(
         [sys.executable, "-c", SURFACE_RUNNER, path, *args, "--device",
-         device], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    proc.started = time.perf_counter()
+         device], cwd=ROOT, env=env, stdout=files[0], stderr=files[1],
+        text=True)
+    proc.started, proc.files = time.perf_counter(), files
     return proc
+
+
+def stop_surface(proc) -> None:
+    """Kill ``proc`` if it still runs, and close its output files."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for f in proc.files:
+        f.close()
 
 
 def finish_surface(proc, label: str) -> tuple:
@@ -2682,11 +2909,12 @@ def finish_surface(proc, label: str) -> tuple:
     kernel launches and its seconds since its start.  Raises unless it
     exited 0."""
     try:
-        out, err = proc.communicate(timeout=SURFACE_TIMEOUT_S)
+        proc.wait(timeout=SURFACE_TIMEOUT_S)
+        for f in proc.files:
+            f.seek(0)
+        out, err = (f.read() for f in proc.files)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+        stop_surface(proc)
     if proc.returncode != 0:
         raise AssertionError(f"{label} exited {proc.returncode}: "
                              f"{err[-3000:]}")
@@ -2696,28 +2924,20 @@ def finish_surface(proc, label: str) -> tuple:
         time.perf_counter() - proc.started
 
 
-def run_surface(target: str, args, device: str) -> tuple:
-    return finish_surface(start_surface(target, args, device),
-                          f"{target} on {device}")
-
-
-def examples_phase(smi: str) -> dict:
-    """E1: each example on the card and on the CPU (the CPU runs start
-    first and run beside the card's); each prints the JAX example's
-    strings, the card's and the CPU's lines agree (``lines_agree``),
-    the relational examples launch ``filter_scan_batch`` and the LLM
-    example ``decode_attention`` on the card, and the CPU runs launch
-    nothing.  Returns the card runs' launches."""
-    host = {target: start_surface(target, args, "cpu", threads=2)
-            for target, args, _ in EXAMPLES}
+def examples_phase(smi: str, procs: dict) -> dict:
+    """E1: each example on the card and on the CPU, from the processes
+    ``procs[(target, device)]`` started by :func:`surfaces_phase`; each
+    prints the JAX example's strings, the card's and the CPU's lines
+    agree (``lines_agree``), the relational examples launch
+    ``filter_scan_batch`` and the LLM example ``decode_attention`` on
+    the card, and the CPU runs launch nothing.  Returns the card runs'
+    launches."""
     launches: dict = {}
-    try:
-        card = {target: run_surface(target, args, "cuda")
-                for target, args, _ in EXAMPLES}
-    finally:
-        cpu = {}
-        for target, proc in host.items():
-            cpu[target] = finish_surface(proc, f"{target} on cpu")
+    card = {target: finish_surface(procs[target, "cuda"],
+                                   f"{target} on cuda")
+            for target, _, _ in EXAMPLES}
+    cpu = {target: finish_surface(procs[target, "cpu"], f"{target} on cpu")
+           for target, _, _ in EXAMPLES}
     for target, args, strings in EXAMPLES:
         (out, used, seconds), (want, cpu_used, _) = card[target], \
             cpu[target]
@@ -2746,11 +2966,15 @@ def examples_phase(smi: str) -> dict:
     return launches
 
 
-def analytics_at_sf1(smi: str) -> dict:
-    """E2: the analytics server on SF1 ``store_sales`` on the card."""
-    args = ("--scale-rows", str(SF1_STORE_SALES_ROWS))
-    out, used, seconds = run_surface("examples/torch_analytics_server.py",
-                                     args, "cuda")
+E2_SURFACE = ("examples/torch_analytics_server.py",
+              ("--scale-rows", str(SF1_STORE_SALES_ROWS)))
+E4_SURFACE = ("repro_torch.launch.serve", ("--arch", "granite-8b"))
+
+
+def analytics_at_sf1(smi: str, proc) -> dict:
+    """E2: the analytics server on SF1 ``store_sales`` on the card, from
+    the process ``proc`` of ``E2_SURFACE``."""
+    out, used, seconds = finish_surface(proc, "E2 on cuda")
     for s in ("aggregate ratio", "warm speedup over cold",
               "subsumption_hit=True", "shared_dispatch="):
         if s not in out:
@@ -2821,11 +3045,10 @@ def async_bench_phase(cuda, smi: str) -> dict:
     return launched
 
 
-def serve_launcher(smi: str) -> dict:
+def serve_launcher(smi: str, proc) -> dict:
     """E4: ``python -m repro_torch.launch.serve --arch granite-8b`` on
-    the card."""
-    out, used, seconds = run_surface("repro_torch.launch.serve",
-                                     ("--arch", "granite-8b"), "cuda")
+    the card, from the process ``proc`` of ``E4_SURFACE``."""
+    out, used, seconds = finish_surface(proc, "E4 on cuda")
     served = [line for line in out.splitlines()
               if line.startswith("served 8 requests")]
     if not served or any(used.get(k, 0) <= 0 for k in SERVING_KERNELS):
@@ -2838,16 +3061,36 @@ def serve_launcher(smi: str) -> dict:
 
 def surfaces_phase(cuda, smi: str) -> dict:
     """Phases E1-E4; returns the launches of each kernel over their
-    card runs."""
+    card runs.  E1, E2 and E4 are processes of their own, which all
+    start together (their printed times are not compared); E3 runs in
+    this process once they have ended, since it times the card against
+    the CPU."""
     launches: dict = {}
-    for name, phase in (("E1", lambda: examples_phase(smi)),
-                        ("E2", lambda: analytics_at_sf1(smi)),
-                        ("E3", lambda: async_bench_phase(cuda, smi)),
-                        ("E4", lambda: serve_launcher(smi))):
-        t0 = time.perf_counter()
-        for k, v in phase().items():
-            launches[k] = launches.get(k, 0) + v
-        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for target, args, _ in EXAMPLES:
+            procs[target, "cpu"] = start_surface(target, args, "cpu",
+                                                 threads=2)
+            procs[target, "cuda"] = start_surface(target, args, "cuda")
+        procs["E2"] = start_surface(*E2_SURFACE, "cuda")
+        procs["E4"] = start_surface(*E4_SURFACE, "cuda")
+        for name, phase in (("E1", lambda: examples_phase(smi, procs)),
+                            ("E2", lambda: analytics_at_sf1(
+                                smi, procs["E2"])),
+                            ("E4", lambda: serve_launcher(
+                                smi, procs["E4"]))):
+            for k, v in phase().items():
+                launches[k] = launches.get(k, 0) + v
+            log(f"{name}: done {time.perf_counter() - t0:.1f} s after "
+                f"E1, E2 and E4 started together")
+    finally:
+        for proc in procs.values():
+            stop_surface(proc)
+    t0 = time.perf_counter()
+    for k, v in async_bench_phase(cuda, smi).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"E3: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2931,17 +3174,18 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
     timings = {}
     if main_path_too:
         if checks:
-            checked = kernel_sweep(cuda)
+            checked = timed("filter sweep", lambda: kernel_sweep(cuda))
             log(f"kernels vs plain versions: bitwise equal over "
                 f"{checked['filter_scan']} literal and "
                 f"{checked['filter_scan_batch']} slotted programs "
                 f"({checked['variants']} compiled variants)")
-        timings.update(kernel_timings(cuda))
+        timings.update(timed("filter timings",
+                             lambda: kernel_timings(cuda)))
     if checks:
         log(f"CSV decoder vs plain versions: parse_i32, parse_f32 and "
             f"parse_fields bitwise equal on the card and on the CPU over "
-            f"{parse_sweep(cuda)} cases")
-    timings.update(parse_timings(cuda))
+            f"{timed('CSV sweep', lambda: parse_sweep(cuda))} cases")
+    timings.update(timed("CSV timings", lambda: parse_timings(cuda)))
     for name, t in timings.items():
         extra = ""
         if "sector_floor_ms" in t:
@@ -2956,17 +3200,18 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
     launches = {}
     host_csv = None
     if main_path_too and checks:
-        stats = main_path(K, cuda)
+        stats = timed("main path", lambda: main_path(K, cuda))
         launches["main"], host_csv = stats["launches"], stats["host_csv"]
-        launches["literal-route"] = literal_route(K, stats["reference"],
-                                                  cuda)
+        launches["literal-route"] = timed("literal route", lambda:
+                                          literal_route(K, stats["reference"],
+                                                        cuda))
         log(f"literal route: filter_scan launched "
             f"{launches['literal-route']['filter_scan']} times, results "
             f"equal the main path's")
         del stats
     if async_too and checks:
-        launches["async"] = async_phases(cuda, smi,
-                                         host_csv or host_csv_passes())
+        launches["async"] = timed("async A0 and A", lambda: async_phases(
+            cuda, smi, host_csv or host_csv_passes()))
     # Rows 3 and 3b of the kernel table are one device kernel: one entry,
     # timed at the F1 scan's three fields (the multi-field shape the CSV
     # scans launch) and counting the launches of parse_fields, which the
@@ -3014,13 +3259,20 @@ def relational_phases(cuda, smi: str, main_path_too: bool = True,
 
 
 def attention_phases(cuda, smi: str, serve: bool, families: bool,
-                     training: bool) -> list:
-    """Phases S1, S2 when ``serve``, S3 when ``families`` and T0-T2 when
-    ``training``: the attention kernels against their plain versions,
-    their times, and the serving and training paths; returns the
-    kernels' JSON entries, whose ``launches`` sum the launches of the
-    paths that ran."""
-    sweep = attention_sweep(cuda)
+                     training: bool, s1: bool = True) -> list:
+    """Phases S1 (unless ``s1`` is false: another checkout's kernels
+    under ``--tree``), S2 when ``serve``, S3 when ``families`` and T0-T2
+    when ``training``: the attention kernels against their plain
+    versions, their times, and the serving and training paths; returns
+    the kernels' JSON entries, whose ``launches`` sum the launches of
+    the paths that ran (none without S1)."""
+    if not s1:
+        for run in ((serving_path,) if serve else ()) + \
+                ((family_phases,) if families else ()) + \
+                ((training_phases,) if training else ()):
+            run(cuda, smi)
+        return []
+    sweep = timed("S1 sweep", lambda: attention_sweep(cuda))
     log(f"attention kernels vs plain versions: decode_attention "
         f"{sweep['cases']['decode_attention']} cases, max |err| "
         f"{sweep['worst']['decode_attention']:.3g}; flash_attention "
@@ -3028,9 +3280,13 @@ def attention_phases(cuda, smi: str, serve: bool, families: bool,
         f"{sweep['worst']['flash_attention']:.3g} (limits f32 "
         f"{ATTN_ATOL['torch.float32']}, bf16 "
         f"{ATTN_ATOL['torch.bfloat16']})")
-    for line in attention_bitwise(cuda):
+    log(f"decode_attention lse vs plain: {sweep['cases']['lse']} cases, "
+        f"max |err| {sweep['worst']['lse']:.3g} (limit {LSE_ATOL})")
+    for line in timed("S1 bitwise", lambda: attention_bitwise(cuda)):
         log(f"bitwise: {line}")
-    timings = attention_timings(cuda)
+    for line in timed("S1 splits", lambda: attention_splits(cuda)):
+        log(f"split: {line} (limit {ATTN_ATOL['torch.bfloat16']}) [{smi}]")
+    timings = timed("S1 timings", lambda: attention_timings(cuda))
     for name, t in timings.items():
         log(f"{name} at {t['shape']}: kernel {t['ms']:.4f} ms (profiler "
             f"device time {fmt_ms(t['device_ms'])}, one device kernel a "
@@ -3041,7 +3297,7 @@ def attention_phases(cuda, smi: str, serve: bool, families: bool,
             f"{t['bound_ms']:.3g} ms ({t['bound_by']}) [{smi}]")
     by_path = {}
     if serve:
-        by_path["serving"] = serving_path(cuda, smi)
+        by_path["serving"] = timed("S2", lambda: serving_path(cuda, smi))
     if families:
         by_path["families"] = family_phases(cuda, smi)
     if training:
@@ -3101,7 +3357,7 @@ M_UPDATE_RTOL = 2.0 ** -5
 M_CFG = dict(
     archs={"train": "granite-8b", "moe": "llama4-scout-17b-a16e",
            "compressed": "gemma3-1b"},
-    train_layers=4,                    # of granite-8b's 36 (M2)
+    train_layers=2,                    # of granite-8b's 36 (M2)
     train_seq=4096,
     comp_seq=512,                      # gemma3-1b compressed step (M2)
     moe_tokens=4096,                   # llama4-scout MoE input rows (M3)
@@ -3429,12 +3685,13 @@ def m_relational(cuda, smi: str) -> dict:
     sharding = m_sharding(devices)
     log(f"M1 relational mesh: {len(devices)} shards over {devices} "
         f"(one controller) [{smi}]")
-    launches = m_tpcds(K, cuda, smi, sharding)
-    for more in (m_partitioned(K, cuda, sharding),
-                 m_literal(K, cuda, sharding)):
+    launches = timed("M1 stream", lambda: m_tpcds(K, cuda, smi, sharding))
+    for more in (timed("M1 partitioned",
+                       lambda: m_partitioned(K, cuda, sharding)),
+                 timed("M1 literal", lambda: m_literal(K, cuda, sharding))):
         for k, v in more.items():
             launches[k] = launches.get(k, 0) + v
-    cases = m_sweep(K, cuda, sharding)
+    cases = timed("M1 sweep seconds", lambda: m_sweep(K, cuda, sharding))
     log(f"M1 sweep: sharded filter_scan_batch, filter_scan and "
         f"parse_fields equal their plain versions on the CPU bitwise over "
         f"{cases} cases (rows {M_SWEEP_ROWS}, {len(devices)} shards)")
@@ -3486,10 +3743,137 @@ def m_moe_inputs(device):
     return cfg, p, x
 
 
+# M5: the routes where two ranks share a kv head, on the card, at the
+# CPU rank tests' config and sizes (gemma3-1b-smoke at 3 q heads over one
+# kv head, window 8, f32): what is checked is the routes' offsets, merges,
+# chunk reassembly and gradients, not their scale.  Each is held against
+# the single-device step on the card within the CPU tests' limits,
+# numpy's assert_allclose at rtol = atol = 1e-5 (the loss: rel 1e-5).
+M_SPLIT = dict(arch="gemma3-1b-smoke", heads=(3, 1), window=8, batch=8,
+               seq=32, slots=16, pos=11, decode_batch=4)
+M_SPLIT_TOL = 1e-5
+
+
+def m_split_cfg():
+    from repro_torch.configs import get_config
+
+    n_heads, n_kv = M_SPLIT["heads"]
+    return replace(get_config(M_SPLIT["arch"]), n_heads=n_heads,
+                   n_kv_heads=n_kv, window=M_SPLIT["window"],
+                   attn_impl="pallas")
+
+
+def m_within(got, want, rtol=M_SPLIT_TOL, atol=M_SPLIT_TOL) -> float:
+    """The worst ratio of |got - want| to atol + rtol |want| (at most 1
+    passes); ``got`` may be a DTensor."""
+    if hasattr(got, "full_tensor"):
+        got = got.full_tensor()
+    want = want.detach().float()
+    return float(((got.detach().float() - want).abs()
+                  / (atol + rtol * want.abs())).max())
+
+
+def m_split_routes(devs, dev) -> dict:
+    """M5 on one rank of a world of 2: a decode step at batch 4 whose
+    two ranks split the kv head's keys ((1, 2) mesh, keys over "model"),
+    one at batch 1 whose cache's slots split over "data" ((2, 1) mesh),
+    and the forward and a train step's loss and gradients over zig-zag
+    query chunks ((1, 2) mesh), each beside the same work on plain
+    tensors on the card.  Returns each check's worst ratio to its limit,
+    the caches' placements, and the kernels' launches in the sharded
+    runs."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             cache_shardings, device_put,
+                                             param_shardings)
+    from repro_torch.models.common import named_leaves
+    from repro_torch.models.decoder import init_cache, map_cache
+    from repro_torch.models.model import (ShapeCell, decode_step, forward,
+                                          init_params, model_specs)
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import to_device
+
+    ms, cfg = M_SPLIT, m_split_cfg()
+    keys = Mesh(devs.reshape(1, 2), ("data", "model"))
+    slots = Mesh(devs.reshape(2, 1), ("data", "model"))
+    out = {"launches": {"decode_attention": 0, "flash_attention": 0}}
+
+    def counted(fn):
+        before = DK.LAUNCHES["decode_attention"], \
+            FK.LAUNCHES["flash_attention"]
+        r = fn()
+        m_sync(dev)
+        out["launches"]["decode_attention"] += \
+            DK.LAUNCHES["decode_attention"] - before[0]
+        out["launches"]["flash_attention"] += \
+            FK.LAUNCHES["flash_attention"] - before[1]
+        return r
+
+    params = init_params(cfg, 0, device=dev)
+    for name, mesh, b in (("decode_keys", keys, ms["decode_batch"]),
+                          ("decode_slots", slots, 1)):
+        gen = torch.Generator().manual_seed(1)
+        cache = map_cache(init_cache(cfg, b, ms["slots"], device="cpu"),
+                          lambda t: torch.randn(t.shape, generator=gen)
+                          .to(dev))
+        token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                              dtype=torch.int32).to(dev)
+        cell = ShapeCell("d", ms["slots"], b, "decode")
+        with torch.no_grad():
+            want, plain = decode_step(params, map_cache(cache, torch.clone),
+                                      token, ms["pos"], cfg)
+            p = device_put(params, param_shardings(model_specs(cfg), cfg,
+                                                   mesh))
+            c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+            t = device_put(token, batch_shardings(
+                cfg, cell, mesh, {"token": token})["token"])
+            with implicit_replication():
+                got, c = counted(lambda: decode_step(p, c, t, ms["pos"],
+                                                     cfg))
+        out[name] = dict(
+            worst=max([m_within(got, want)] + [
+                m_within(x, y) for (_, x), (_, y) in
+                zip(named_leaves(c), named_leaves(plain))]),
+            placements=str(tuple(named_leaves(c)[0][1].placements)))
+        del p, c, t, got, cache, plain
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=ms["seq"],
+                      global_batch=ms["batch"], seed=0)
+    batch = to_device(make_batch(data, 0), dev)
+    cell = ShapeCell("t", ms["seq"], ms["batch"], "train")
+    p_sh = param_shardings(model_specs(cfg), cfg, keys)
+    b_sh = batch_shardings(cfg, cell, keys, batch)
+    with torch.no_grad():
+        want = forward(params, batch["tokens"], cfg)
+        p = device_put(params, p_sh)
+        toks = device_put(batch, b_sh)["tokens"]
+        with implicit_replication():
+            got = counted(lambda: forward(p, toks, cfg))
+    out["forward"] = m_within(got, want)
+    masters = init_params(cfg, 0, device=dev, masters=True)
+    loss, grads = value_and_grad(masters, batch, cfg)
+    s_loss, s_grads = counted(lambda: value_and_grad(
+        device_put(masters, p_sh), device_put(batch, b_sh), cfg))
+    out["loss"] = m_within(s_loss, loss, atol=0.0)
+    want, got = dict(named_leaves(grads)), dict(named_leaves(s_grads))
+    if sorted(want) != sorted(got):
+        raise AssertionError(f"M5 gradient leaves {sorted(got)} against "
+                             f"{sorted(want)}")
+    out["grads"] = max(m_within(got[k], want[k]) for k in want)
+    out["n_grads"] = len(want)
+    return out
+
+
 def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
     """One SPMD rank of phase M's world: M2 (the TP train step and its
-    control, the compressed step), M3 (expert-parallel MoE) and M4's
-    save.  Returns host values only."""
+    control, the compressed step), M3 (expert-parallel MoE), M4's save
+    and M5 (the routes where two ranks share a kv head).  Returns host
+    values only."""
     M_CFG.update(cfg_m)
     import numpy as np
     import torch
@@ -3735,6 +4119,11 @@ def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
     del masters, state, metrics, mine
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- M5: the routes where two ranks share a kv head ----------------
+    t0 = time.perf_counter()
+    out["m5"] = m_split_routes(devs, dev)
+    out["m5"]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3792,7 +4181,7 @@ def _flat_shardings(tree):
 
 
 def m_spmd(cuda, smi: str) -> dict:
-    """Phases M2-M4 in one SPMD world of 2 ranks, checked against the
+    """Phases M2-M5 in one SPMD world of 2 ranks, checked against the
     single-device runs made here first."""
     import tempfile
 
@@ -3809,7 +4198,7 @@ def m_spmd(cuda, smi: str) -> dict:
 
     devices = m_spmd_devices()
     world = make_test_mesh((2,), ("model",), devices=devices)
-    log(f"M2-M4 SPMD world: 2 ranks on {devices} over "
+    log(f"M2-M5 SPMD world: 2 ranks on {devices} over "
         f"{backend(world)} [{smi}]")
 
     # single-device references on the card
@@ -3891,6 +4280,30 @@ def m_spmd(cuda, smi: str) -> dict:
                     or not b["finite"] or b["over"] \
                     or b["tight"] < b["elements"] / 2:
                 raise AssertionError(f"M2 compressed rank {r}: {b}")
+            m5 = o["m5"]
+            log(f"M5 {M_SPLIT['arch']} at {M_SPLIT['heads'][0]} q / "
+                f"{M_SPLIT['heads'][1]} kv heads, f32, rank {r}, worst "
+                f"ratio to the CPU tests' limit (rtol = atol = "
+                f"{M_SPLIT_TOL}) against the single-device step on the "
+                f"card: decode over the kv head's key shards at batch "
+                f"{M_SPLIT['decode_batch']} {m5['decode_keys']['worst']:.3g}"
+                f", over slot shards at batch 1 "
+                f"{m5['decode_slots']['worst']:.3g} (cache "
+                f"{m5['decode_slots']['placements']}); forward over zig-zag "
+                f"query chunks {m5['forward']:.3g}, loss {m5['loss']:.3g}, "
+                f"{m5['n_grads']} gradients {m5['grads']:.3g}; launches "
+                f"{m5['launches']}; {m5['seconds']:.1f} s [{smi}]")
+            worst = max(m5["decode_keys"]["worst"],
+                        m5["decode_slots"]["worst"], m5["forward"],
+                        m5["loss"], m5["grads"])
+            if not worst <= 1 \
+                    or "Shard(dim=2)" not in m5["decode_slots"]["placements"] \
+                    or "Shard(dim=1)" in m5["decode_keys"]["placements"]:
+                raise AssertionError(f"M5 rank {r}: {m5}")
+            if M_CFG["device_type"] == "cuda" \
+                    and not all(m5["launches"].values()):
+                raise AssertionError(f"M5 rank {r}: a kernel never "
+                                     f"launched: {m5['launches']}")
         saved = {}
         for o in outs:
             for k, v in o["digests"].items():
@@ -3907,8 +4320,12 @@ def m_spmd(cuda, smi: str) -> dict:
                 f"of 2 (save {outs[0]['save_seconds']:.1f} s) restored onto "
                 f"a world of {w.size} in {res[0]['seconds']:.1f} s, every "
                 f"leaf bitwise equal on the placements asked for [{smi}]")
-    log(f"M2-M4 world: {world_s:.1f} s")
-    return {"flash_attention": sum(o["m2"]["flash"] for o in outs)}
+    log(f"M2-M5 world: {world_s:.1f} s")
+    return {"flash_attention": sum(o["m2"]["flash"]
+                                   + o["m5"]["launches"]["flash_attention"]
+                                   for o in outs),
+            "decode_attention": sum(o["m5"]["launches"]["decode_attention"]
+                                    for o in outs)}
 
 
 M_KERNELS = (
@@ -3925,7 +4342,7 @@ M_KERNELS = (
 
 
 def sharded_phase(cuda, smi: str) -> dict:
-    """Phase M: M1, then M2-M4; returns the launches of the sharded
+    """Phase M: M1, then M2-M5; returns the launches of the sharded
     paths by kernel."""
     launches = m_relational(cuda, smi)
     launches.update(m_spmd(cuda, smi))
@@ -4091,8 +4508,9 @@ def main(argv=None) -> int:
                          "unpacked by git archive) instead of this one")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
-    if tree != ROOT and args.only != "timings":
-        ap.error("--tree needs --only timings")
+    if tree != ROOT and args.only not in ("timings", "serving", "families",
+                                          "training"):
+        ap.error("--tree needs --only timings|serving|families|training")
     # pins cuBLAS's workspace so that deterministic algorithms are
     # available to the serving phase; read when CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4154,7 +4572,7 @@ def main(argv=None) -> int:
         kernels += phase("attention", lambda: attention_phases(
             cuda, smi, serve=args.only in (None, "serving"),
             families=args.only in (None, "families"),
-            training=args.only in (None, "training")))
+            training=args.only in (None, "training"), s1=tree == ROOT))
     sharded = None
     if args.only in (None, "sharded"):
         sharded = phase("sharded", lambda: sharded_phase(cuda, smi))

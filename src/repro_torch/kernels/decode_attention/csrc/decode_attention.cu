@@ -3,9 +3,16 @@
 //
 // Replaces the Pallas TPU kernel `decode_attention` (`_decode_body`) in
 // src/repro/kernels/decode_attention/kernel.py.  q (B, Hq, D); k, v
-// (B, Hkv, S, D); kv_len int32 (B,); out (B, Hq, D) in q's dtype (f32 or
+// (B, Hkv, S, D), each slot's D elements contiguous and slot after slot,
+// batch rows and heads at the strides kv_sb, kv_sh (elements) that k and
+// v share, so that a view narrowed along heads and slots is read in
+// place; kv_len int32 (B,); out (B, Hq, D) in q's dtype (f32 or
 // bf16), all math in f32.  Keys in [max(0, kv_len - window), kv_len)
-// are live (window < 0: no window).
+// are live (window < 0: no window).  Where asked (lse not null), also
+// lse (B, Hq) f32, the log-sum-exp of each row's scaled logits
+// (sm_scale x q.k over the live keys): -inf and a zero output for a row
+// with no live key.  It is what merges the rows of several key shards
+// (`kernels/decode_attention/ops.py`).
 //
 // Bound: memory.  A call must read the live K and V rows once
 // (2 x Hkv x live x D elements per batch row) plus q, and write out;
@@ -53,6 +60,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint4 load16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
@@ -121,8 +129,9 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ kv_len, int hq, int hkv,
-                        int n_qc, int S, int window, float scale_log2,
-                        T* __restrict__ out) {
+                        int n_qc, int S, long long kv_sb, long long kv_sh,
+                        int window, float scale_log2,
+                        T* __restrict__ out, float* __restrict__ lse) {
   using P = Plan<D, T, QG>;
   using V = Vec<T>;
   cg::cluster_group cluster = cg::this_cluster();
@@ -170,7 +179,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < P::kElems; ++e) acc[g][e] = 0.f;
   }
 
-  const size_t kv0 = ((size_t)b * hkv + h) * (size_t)S * D;
+  const size_t kv0 = (size_t)b * kv_sb + (size_t)h * kv_sh;
   const T* kb = k + kv0;
   const T* vb = v + kv0;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -320,6 +329,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     ob[e] = V::store(a / fmaxf(ll, 1e-30f));
+    // the row's log-sum-exp, once a row, in natural units of the scaled
+    // logits (m is in base 2)
+    if (lse != nullptr && e % D == 0)
+      lse[(size_t)b * hq + (size_t)h * G + g0 + g] =
+          mm == -INFINITY ? -INFINITY : (mm + log2f(ll)) * kLn2;
   }
   // no CTA leaves while another may still read its shared memory
   cluster.sync();
@@ -334,8 +348,9 @@ constexpr int max_rows() {
 
 template <int D, typename T, int QG>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int B, int hq, int hkv, int S, int window, float scale,
-           int n_split, void* out, cudaStream_t stream) {
+           int B, int hq, int hkv, int S, long long kv_sb, long long kv_sh,
+           int window, float scale, int n_split, void* out, float* lse,
+           cudaStream_t stream) {
   const int n_qc = (hq / hkv + QG - 1) / QG;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_split, hkv * n_qc, B);
@@ -352,37 +367,39 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   return (int)cudaLaunchKernelEx(
       &cfg, decode_attention_kernel<D, T, QG>, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(kv_len), hq, hkv,
-      n_qc, S, window, scale * kLog2e, static_cast<T*>(out));
+      n_qc, S, kv_sb, kv_sh, window, scale * kLog2e, static_cast<T*>(out),
+      lse);
 }
 
 template <int D, typename T>
 int dispatch_rows(const void* q, const void* k, const void* v,
                   const void* kv_len, int B, int hq, int hkv, int S,
-                  int window, float scale, int n_split, void* out,
-                  cudaStream_t stream) {
+                  long long kv_sb, long long kv_sh, int window, float scale,
+                  int n_split, void* out, float* lse, cudaStream_t stream) {
   const int group = hq / hkv;
   constexpr int cap = max_rows<D, T>();
   const int rows = group <= 1 ? 1 : group <= 2 ? 2 : group <= 4 ? 4 : 8;
   switch (rows < cap ? rows : cap) {
-    case 1: return launch<D, T, 1>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
-    case 2: return launch<D, T, 2>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
-    case 4: return launch<D, T, 4>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
+    case 1: return launch<D, T, 1>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
+    case 2: return launch<D, T, 2>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
+    case 4: return launch<D, T, 4>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
     default:
       if constexpr (cap >= 8)
-        return launch<D, T, 8>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
+        return launch<D, T, 8>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
       return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v,
-               const void* kv_len, int B, int hq, int hkv, int S, int window,
-               float scale, int n_split, void* out, cudaStream_t stream) {
+               const void* kv_len, int B, int hq, int hkv, int S,
+               long long kv_sb, long long kv_sh, int window, float scale,
+               int n_split, void* out, float* lse, cudaStream_t stream) {
   switch (D) {
-    case 32: return dispatch_rows<32, T>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
-    case 64: return dispatch_rows<64, T>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
-    case 128: return dispatch_rows<128, T>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
-    case 256: return dispatch_rows<256, T>(q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, stream);
+    case 32: return dispatch_rows<32, T>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
+    case 64: return dispatch_rows<64, T>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
+    case 128: return dispatch_rows<128, T>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
+    case 256: return dispatch_rows<256, T>(q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -392,19 +409,23 @@ int dispatch_d(int D, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16.  window < 0: none.  n_split: CTAs of a
-// cluster, 1 .. 8.  q, k, v, out contiguous and 16-byte aligned.
+// cluster, 1 .. 8.  q, out contiguous; q, k, v, out 16-byte aligned, and
+// so are k's and v's batch and head strides kv_sb, kv_sh (elements).
+// lse: (B, Hq) f32, or null for none.
 int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, int B, int hq, int hkv, int S,
-                            int D, int dtype, int window, float scale,
-                            int n_split, void* out, void* stream) {
+                            long long kv_sb, long long kv_sh, int D,
+                            int dtype, int window, float scale, int n_split,
+                            void* out, void* lse, void* stream) {
   if (B < 1 || B > 65535 || hkv < 1 || hq % hkv != 0 || S < 1 ||
       n_split < 1 || n_split > kMaxCluster || hkv * hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, st);
+    return dispatch_d<float>(D, q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse_f, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_len, B, hq, hkv, S, window, scale, n_split, out, st);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_len, B, hq, hkv, S, kv_sb, kv_sh, window, scale, n_split, out, lse_f, st);
   return (int)cudaErrorInvalidValue;
 }
 

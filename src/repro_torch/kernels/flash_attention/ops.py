@@ -9,12 +9,24 @@ through the plain ``mha_ref`` and returns that recompute's gradients.
 There is no backward kernel, in the JAX package or here.
 
 On an SPMD rank q, k and v arrive as DTensors (tensor parallelism over
-the heads).  :func:`attention` then keeps the batch where it is sharded,
-splits the heads over every other mesh dim whose size divides both
+the heads).  :func:`attention` then keeps the batch where it is sharded
+and splits the heads over every other mesh dim whose size divides both
 ``n_heads`` and ``n_kv_heads`` (so each rank's q heads read exactly its
-own kv heads) and replicates them elsewhere, and runs the Function on
-each rank's local tensors: on the card the kernel runs on the rank's
-local heads.
+own kv heads).  Where a mesh dim of n ranks cannot split the kv heads
+but n is a multiple of them, the r = n / Hkv ranks that share a kv head
+split its work as decode does (``models.common.replica_plan``):
+its g q heads by d = gcd(g, r), and the queries by c = r / d.  Each rank
+narrows its replica of k and v to its kv head.  With c = 1 (granite-8b:
+2 q heads a rank inside a group of 4) the ranks' q heads are a plain
+split of the heads.  Otherwise (gemma3-1b, llama4-scout, phi4-mini) the
+queries are cut into 2c chunks and rank s of the c takes chunks s and
+2c - 1 - s (zig-zag), so that every rank gets the same causal work;
+each chunk attends its key prefix through the kernel, whose query rows
+sit at the end of the keys it is given, and the chunks are all-gathered
+into the (B, Hq, T, D) output that ``wo`` takes.  q, k and v take their
+gradients on each rank's slices only, as partial sums over that mesh
+dim (``Partial``).  Elsewhere the heads are replicated, and every rank
+runs the kernel on them.
 """
 from __future__ import annotations
 
@@ -89,15 +101,108 @@ def _head_placements(q, n_kv: int):
     return tuple(qp), tuple(kvp)
 
 
-def _attention_local(q, k, v, causal, window, sm_scale, impl):
-    from torch.distributed.tensor import DTensor
+def _replica_route(q, n_kv: int, qp, kvp, causal: bool):
+    """(mesh dim, (r, d, c)) where the ranks of a mesh dim that
+    replicates the heads share each kv head (``replica_plan``), or None.
+    The query chunks need a causal mask and 2c equal chunks."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    qp, kvp = _head_placements(q, k.shape[1])
+    from ...models.common import replica_plan
+
+    if Shard(1) in kvp:
+        return None
+    for i, pl in enumerate(qp):
+        if not isinstance(pl, Replicate):
+            continue
+        plan = replica_plan(n_kv, q.shape[1] // n_kv, q.device_mesh.size(i))
+        if plan is None or plan[0] == 1:
+            continue
+        if plan[2] == 1 or (causal and q.shape[2] % (2 * plan[2]) == 0):
+            return i, plan
+    return None
+
+
+def _attention_local(q, k, v, causal, window, sm_scale, impl):
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    qp, kvp = (list(x) for x in _head_placements(q, k.shape[1]))
     mesh = q.device_mesh
+    route = _replica_route(q, k.shape[1], qp, kvp, causal)
+    if route is None:
+        q = q.redistribute(mesh, qp)
+        k = k.redistribute(mesh, kvp)
+        v = v.redistribute(mesh, kvp)
+        out = _Attention.apply(q.to_local(), k.to_local(), v.to_local(),
+                               causal, window, sm_scale, impl)
+        return DTensor.from_local(out, mesh, qp, run_check=False,
+                                  shape=q.shape, stride=q.stride())
+    dim, (r, d, c) = route
+    j = mesh.get_local_rank(dim)
+    head = j // r
+    if c == 1:
+        qp[dim] = Shard(1)
     q = q.redistribute(mesh, qp)
     k = k.redistribute(mesh, kvp)
     v = v.redistribute(mesh, kvp)
-    out = _Attention.apply(q.to_local(), k.to_local(), v.to_local(),
-                           causal, window, sm_scale, impl)
-    return DTensor.from_local(out, mesh, qp, run_check=False,
-                              shape=q.shape, stride=q.stride())
+    # each rank's gradient covers its own slices: a partial sum over dim
+    kgp = [Partial() if i == dim else pl for i, pl in enumerate(kvp)]
+    k_loc = k.to_local(grad_placements=kgp).narrow(1, head, 1)
+    v_loc = v.to_local(grad_placements=kgp).narrow(1, head, 1)
+    if c == 1:
+        out = _Attention.apply(q.to_local(), k_loc, v_loc, causal, window,
+                               sm_scale, impl)
+        return DTensor.from_local(out, mesh, qp, run_check=False,
+                                  shape=q.shape, stride=q.stride())
+    qgp = [Partial() if i == dim else pl for i, pl in enumerate(qp)]
+    q_loc = q.to_local(grad_placements=qgp)
+    group = q.shape[1] // k.shape[1]
+    per = group // d
+    start = head * group + (j % r) // c * per
+    outs = [_Attention.apply(q_loc[:, start:start + per, a:a + size],
+                             k_loc[:, :, lo:hi], v_loc[:, :, lo:hi], causal,
+                             window, sm_scale, impl)
+            for a, size, lo, hi in zigzag_chunks(q.shape[2], k.shape[2], c,
+                                                 j % c, window)]
+    return _gather_chunks(torch.stack(outs, dim=2), mesh, qp, dim,
+                          (k.shape[1], d, c), q.shape)
+
+
+def zigzag_chunks(t: int, s: int, c: int, shard: int,
+                  window: Optional[int]) -> list:
+    """The two causal query chunks of ``shard`` of ``c`` over T = ``t``
+    rows (2c chunks of T / 2c; chunks ``shard`` and 2c - 1 - ``shard``)
+    and S = ``s`` keys: ``(first row, rows, first key, end key)`` each,
+    the keys being the chunk's prefix, from its first row's window.  The
+    kernel sees its rows at the end of those keys, where they sit."""
+    size = t // (2 * c)
+    out = []
+    for chunk in (shard, 2 * c - 1 - shard):
+        a = chunk * size
+        lo = 0 if window is None else max(0, s - t + a - window + 1)
+        out.append((a, size, lo, s - t + a + size))
+    return out
+
+
+def _gather_chunks(piece, mesh, qp, dim: int, split, shape):
+    """The (B, Hq, T, D) output from every rank's ``piece`` (B, per, 2,
+    T / 2c, D) of its q heads and its two query chunks: an all-gather over
+    mesh dim ``dim``, whose rank j = (h r + p c + s) holds kv head h's q
+    part p at chunks s and 2c - 1 - s; ``split`` is (Hkv, d, c)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pls = [Shard(0) if i == dim else
+           Shard(pl.dim + 1) if isinstance(pl, Shard) else pl
+           for i, pl in enumerate(qp)]
+    whole = [Replicate() if i == dim else pl for i, pl in enumerate(pls)]
+    every = DTensor.from_local(piece[None], mesh, pls, run_check=False
+                               ).redistribute(mesh, whole).to_local()
+    n_kv, d, c = split
+    b, per, _, size, hd = piece.shape
+    every = every.view(n_kv, d, c, b, per, 2, size, hd).permute(
+        3, 0, 1, 4, 5, 2, 6, 7)            # (B, Hkv, d, per, 2, c, T/2c, D)
+    out = torch.cat([every[:, :, :, :, 0], every[:, :, :, :, 1].flip(4)],
+                    dim=4).reshape(b, n_kv * d * per, 2 * c * size, hd)
+    return DTensor.from_local(out, mesh, [Replicate() if i == dim else pl
+                                          for i, pl in enumerate(qp)],
+                              run_check=False, shape=shape,
+                              stride=out.stride())

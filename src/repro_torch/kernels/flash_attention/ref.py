@@ -54,12 +54,14 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kv_len: torch.Tensor, *, sm_scale: Optional[float] = None,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None, return_lse: bool = False):
     """Single-token decode.
 
     q: (B, Hq, D); k, v: (B, Hkv, S, D) padded caches; kv_len: (B,)
     live lengths (the new token's KV already appended).  window: keys
-    in [kv_len - window, kv_len).
+    in [kv_len - window, kv_len).  With ``return_lse``, also the
+    log-sum-exp (B, Hq) f32 of each row's scaled logits over its live
+    keys: -inf, beside a zero output, for a row with none.
     """
     d, s = q.shape[2], k.shape[2]
     k, v = _expand_kv(k, v, q.shape[1] // k.shape[1])
@@ -74,4 +76,7 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = _softmax_rows(logits)
     out = torch.einsum("bhs,bhsd->bhd", probs, v.float())
     denom = probs.sum(-1, keepdim=True)
-    return (out / torch.clamp(denom, min=1e-30)).to(q.dtype)
+    out = (out / torch.clamp(denom, min=1e-30)).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out

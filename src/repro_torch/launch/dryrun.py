@@ -44,7 +44,9 @@ What :class:`StepCounter` counts, per device (rank 0's local shards):
     waits move nothing; an argument the op writes counts as output).
   * collectives: each functional collective's result bytes, summed by
     ``roofline.collective_bytes_from_ops`` under the JAX package's op
-    names.
+    names, and the largest of each op (``collective_largest``: an
+    all-gather as large as a cache or table shard is one that gathers
+    it).
   * ``memory.peak_bytes_per_device_est``: the high-water mark of the
     live bytes of rank 0's storages (inputs, and every op's outputs
     until they are freed); an estimate, as the JAX package's is.
@@ -85,7 +87,8 @@ from ..models.model import (SHAPES, ShapeCell, decode_step, forward,
 from ..train.optimizer import OptConfig
 from ..train.train_step import make_train_step
 from .mesh import Mesh, device_mesh, make_production_mesh
-from .roofline import collective_bytes_from_ops, roofline_terms
+from .roofline import (COLLECTIVE_OPS, collective_bytes_from_ops,
+                       roofline_terms)
 from .sharding import (NamedSharding, batch_shardings, cache_shardings,
                        opt_state_shardings, param_shardings, placements)
 
@@ -427,6 +430,7 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, n_ranks: int,
     of ``n_ranks``, on the mesh ``make_mesh(devices)`` builds, and return
     rank 0's counts: ``flops``, ``bytes``, ``collectives`` (as
     :func:`~.roofline.collective_bytes_from_ops` gives them),
+    ``largest`` (the largest result of each collective op),
     ``kernel_calls``, ``peak_bytes`` and the seconds it took to build
     the fake arguments and to run the step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -461,8 +465,13 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, n_ranks: int,
                 _uncounted_propagation(counter):
             out = fn(*args)
         del out, args
+    largest: Dict[str, int] = {}
+    for name, nbytes in counter.collectives:
+        op = COLLECTIVE_OPS.get(name, name)
+        largest[op] = max(largest.get(op, 0), nbytes)
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collectives": collective_bytes_from_ops(counter.collectives),
+            "largest": largest,
             "kernel_calls": counter.kernel_calls,
             "peak_bytes": counter.peak, "build_seconds": t_build,
             "trace_seconds": time.time() - t0 - t_build}
@@ -515,6 +524,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
             "collective_bytes_per_device": float(coll["total"]),
             "collectives": coll["by_op"],
             "collective_counts": coll["op_counts"],
+            "collective_largest": counts["largest"],
             "kernel_calls": counts["kernel_calls"],
             "memory": {"peak_bytes_per_device_est": counts["peak_bytes"]},
             "params_total": total,

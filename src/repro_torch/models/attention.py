@@ -27,7 +27,7 @@ from ..kernels.decode_attention.ops import decode
 from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
 from .common import (ParamSpec, apply_rope, reduce_row_parallel, rmsnorm,
-                     rmsnorm_spec)
+                     rmsnorm_spec, shard_range)
 from .config import ArchConfig
 
 
@@ -86,6 +86,59 @@ def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _like_slots(new: torch.Tensor, buf) -> torch.Tensor:
+    """``new`` (B, H, s, D) as the local tensor that matches ``buf``'s
+    placements on every dim but the slots, which it holds whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    return new.redistribute(mesh, [Replicate() if pl == Shard(2) else pl
+                                   for pl in buf.placements]).to_local()
+
+
+def write_slot(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
+    """``buf[:, :, idx] = new[:, :, 0]`` in place.  On a DTensor cache
+    each rank writes its own block, and on a cache split along its slots
+    (the sequence-parallel caches) only the rank that holds slot ``idx``
+    writes: nothing is gathered."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(buf, DTensor):
+        buf[:, :, idx:idx + 1] = new
+        return
+    local, begin = buf.to_local(), shard_range(buf, 2)[0]
+    new = _like_slots(new, buf)
+    if begin <= idx < begin + local.shape[2]:
+        local[:, :, idx - begin:idx - begin + 1] = new
+
+
+def roll_slots(buf: torch.Tensor) -> None:
+    """``buf`` rolled one slot toward the front, in place (the rolling
+    window cache once full).  On a DTensor cache each rank rolls its own
+    block; where the cache is split along its slots each shard shifts
+    its own slots and takes its last one from the next shard's first:
+    the shards' first slots are all-gathered, never the cache."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(buf, DTensor):
+        buf.copy_(torch.roll(buf, -1, dims=2))
+        return
+    local = buf.to_local()
+    if Shard(2) not in buf.placements:
+        local.copy_(torch.roll(local, -1, dims=2))
+        return
+    begin = shard_range(buf, 2)[0]
+    firsts = _like_slots(DTensor.from_local(
+        local[:, :, :1].contiguous(), buf.device_mesh, buf.placements,
+        run_check=False), buf)                  # (B, H, shards, D)
+    nxt = (begin // local.shape[2] + 1) % firsts.shape[2]
+    local.copy_(torch.cat([local[:, :, 1:], firsts[:, :, nxt:nxt + 1]],
+                          dim=2))
+
+
 def gqa_decode(p, x: torch.Tensor, cache: Dict, write_idx: int,
                cfg: ArchConfig, *, window: Optional[int], dtype,
                rope_pos: Optional[int] = None
@@ -104,8 +157,8 @@ def gqa_decode(p, x: torch.Tensor, cache: Dict, write_idx: int,
                      device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)[:, :, 0]
     k = apply_rope(k, pos, cfg.rope_theta)
-    cache["k"][:, :, write_idx:write_idx + 1] = k
-    cache["v"][:, :, write_idx:write_idx + 1] = v
+    write_slot(cache["k"], k, write_idx)
+    write_slot(cache["v"], v, write_idx)
     kv_len = torch.full((b,), int(write_idx) + 1, dtype=torch.int32,
                         device=x.device)
     out = decode(q, cache["k"], cache["v"], kv_len, window=window,

@@ -20,6 +20,7 @@ rank to the placements the mesh's logical axes name.
 from __future__ import annotations
 
 import contextvars
+import math
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -269,6 +270,36 @@ def reduce_row_parallel(x: torch.Tensor) -> torch.Tensor:
     tensors.  Under autograd it stays partial: the backward of the eager
     sum hands the head merge a gradient split through heads."""
     return x if torch.is_grad_enabled() else reduce_partial(x)
+
+
+def replica_plan(n_kv: int, group: int, n: int) -> Optional[Tuple[int, int,
+                                                                   int]]:
+    """(r, d, c) for a mesh dim of ``n`` ranks over ``n_kv`` kv heads of
+    ``group`` q heads each, where n is a multiple of n_kv: r ranks share
+    each kv head, d = gcd(group, r) parts of its q heads, c = r / d
+    shards of its keys (rank j: kv head j // r, q part (j % r) // c,
+    shard j % c); None where n is not a multiple of n_kv."""
+    if n % n_kv:
+        return None
+    r = n // n_kv
+    d = math.gcd(group, r)
+    return r, d, r // d
+
+
+def shard_range(x, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's block of DTensor ``x`` along
+    tensor dim ``dim``, from its ``Shard`` placements in mesh-dim order
+    (``torch.chunk``'s split, as DTensor's): plain integers, which a
+    trace on fake tensors can read."""
+    from torch.distributed.tensor import Shard
+
+    mesh, begin, size = x.device_mesh, 0, x.shape[dim]
+    for i, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            lo = min(mesh.get_local_rank(i) * chunk, size)
+            begin, size = begin + lo, min(size - lo, chunk)
+    return begin, size
 
 
 # ---------------------------------------------------------------------------

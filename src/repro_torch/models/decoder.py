@@ -212,7 +212,7 @@ def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
         wlen = cache["k"].shape[2]
         if cur_len >= wlen:
             for name in ("k", "v"):
-                cache[name].copy_(torch.roll(cache[name], -1, dims=2))
+                A.roll_slots(cache[name])
         h, cache = A.gqa_decode(p["mix"], h, cache, min(cur_len, wlen - 1),
                                 cfg, window=None, dtype=dtype,
                                 rope_pos=cur_len)

@@ -17,8 +17,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .common import (ParamSpec, ParamTree, _is_dtensor, constrain,
-                     cross_entropy, materialize_params, rmsnorm,
-                     rmsnorm_spec, storage_dtype)
+                     cross_entropy, materialize_params, reduce_partial,
+                     rmsnorm, rmsnorm_spec, shard_range, storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -75,17 +75,53 @@ def cast_params(masters, cfg: ArchConfig) -> Dict:
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding rows of ``tokens``.  A DTensor table split over a
-    mesh dim (the vocab, or the embedding under FSDP) is gathered whole
-    first, as DTensor's index would gather it, so the rows come out
-    split like the tokens and whole otherwise."""
+    """The embedding rows of ``tokens``.  A DTensor table is looked up
+    where it lies (:func:`_vocab_parallel_lookup`); a plain one is
+    indexed."""
     table = params["embed"]
     if _is_dtensor(table):
-        from torch.distributed.tensor import Replicate
-
-        table = table.redistribute(table.device_mesh,
-                                   [Replicate()] * table.device_mesh.ndim)
+        return _vocab_parallel_lookup(table, tokens)
     return table[tokens]
+
+
+def _vocab_parallel_lookup(table, tokens):
+    """The vocab-parallel lookup of a DTensor ``table`` (V, d): each
+    rank of a mesh dim that splits the vocab looks up the tokens its own
+    rows hold, zeros for the others, and the partial sums reduce over
+    that dim (one all-reduce of (B, T, d)), so the table never moves and
+    the gradient lands in each rank's own rows.  An embedding dim split
+    over a mesh dim (FSDP) is gathered first, as ZeRO-3 gathers a weight
+    on use.  The rows come out split like the tokens and whole
+    otherwise."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    vocab = [i for i, pl in enumerate(table.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    tp = [pl if i in vocab else Replicate()
+          for i, pl in enumerate(table.placements)]
+    table = table.redistribute(mesh, tp)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    kp = [Replicate() if i in vocab else pl
+          for i, pl in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, kp)
+    begin, rows = shard_range(table, 0)
+    # the gradient of the rows a rank holds sums over the ranks that
+    # split the tokens
+    gp = [pl if i in vocab else
+          Partial() if isinstance(kp[i], Shard) else Replicate()
+          for i, pl in enumerate(tp)]
+    local = table.to_local(grad_placements=gp)
+    ids = tokens.to_local().long() - begin
+    if not vocab:
+        return DTensor.from_local(local[ids], mesh, kp, run_check=False)
+    mine = (ids >= 0) & (ids < rows)
+    out = local[torch.where(mine, ids, 0)] * mine[..., None].to(local.dtype)
+    pls = [Partial() if i in vocab else pl for i, pl in enumerate(kp)]
+    return reduce_partial(DTensor.from_local(out, mesh, pls,
+                                             run_check=False))
 
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -92,6 +92,40 @@ def test_decode_plain_version_matches_the_pallas_kernel(case):
     assert torch.equal(plain, got)
 
 
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=[f"c{i}" for i in range(len(DECODE_CASES))])
+def test_decode_lse_against_numpy(case):
+    """``return_lse``: the log-sum-exp of each row's scaled logits over
+    its live keys against numpy's, with the first row's keys all dead
+    (kv_len 0: -inf and a zero output); the output is the one without
+    it."""
+    b, hq, hkv, s, d, lens, window, _ = case
+    q, k, v = _inputs(10 + DECODE_CASES.index(case), (b, hq, d),
+                      (b, hkv, s, d), (b, hkv, s, d))
+    kv_len = np.asarray((0,) + lens[1:], np.int32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = DK.decode_attention(tq, tk, tv, torch.from_numpy(kv_len),
+                                   window=window, return_lse=True)
+    assert lse.shape == (b, hq) and lse.dtype == torch.float32
+    assert torch.equal(out, DK.decode_attention(
+        tq, tk, tv, torch.from_numpy(kv_len), window=window))
+    kx = np.repeat(k, hq // hkv, axis=1).astype(np.float64)
+    logits = np.einsum("bhd,bhsd->bhs", q.astype(np.float64), kx) / d ** 0.5
+    pos = np.arange(s)[None, :]
+    live = pos < kv_len[:, None]
+    if window is not None:
+        live &= pos >= kv_len[:, None] - window
+    want = np.full((b, hq), -np.inf)
+    for i in range(b):
+        if live[i].any():
+            x = logits[i][:, live[i]]
+            top = x.max(-1, keepdims=True)
+            want[i] = np.log(np.exp(x - top).sum(-1)) + top[:, 0]
+    np.testing.assert_allclose(lse.numpy(), want, atol=ATOL, rtol=1e-6)
+    assert torch.isneginf(lse[0]).all() and not out[0].any()
+    assert torch.isfinite(lse[1:]).all()
+
+
 def test_decode_is_the_last_row_of_causal_attention():
     """One decode step over a cache of n live keys equals the last query
     row of causal attention over those n keys."""
@@ -138,3 +172,23 @@ def test_decode_split_plan_covers_the_cache():
                 for key in range(begin, end):
                     hits[key] += 1
             assert hits == [int(lo <= key < hi) for key in range(s)]
+
+
+def test_decode_reads_a_rank_share_of_the_cache_in_place():
+    """A rank's share of a contiguous cache, narrowed along batch rows,
+    kv heads and slots as the key-split decode narrows its replica, is
+    read in place at the cache's batch and head strides (a size-1 dim's
+    stride counts for nothing); a layout whose slot rows do not follow
+    one another, or k and v at different strides, is copied first."""
+    k = torch.zeros(4, 8, 64, 32)
+    v = torch.zeros(4, 8, 64, 32)
+    assert DK.kv_strides(k, v) == (8 * 64 * 32, 64 * 32)
+    head = (k.narrow(1, 3, 1).narrow(2, 16, 16),
+            v.narrow(1, 3, 1).narrow(2, 16, 16))
+    assert not head[0].is_contiguous()
+    assert DK.kv_strides(*head) == (8 * 64 * 32, 0)
+    assert DK.kv_strides(k[:1, 2:5, 8:40], v[:1, 2:5, 8:40]) == (0, 64 * 32)
+    assert DK.kv_strides(k.transpose(1, 2), v.transpose(1, 2)) is None
+    wide = torch.zeros(4, 8, 128, 32).narrow(2, 0, 64)     # v's slots
+    assert DK.kv_strides(k, wide) is None
+    assert DK.kv_strides(k.narrow(3, 0, 16), v.narrow(3, 0, 16)) is None

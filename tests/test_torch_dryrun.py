@@ -112,7 +112,10 @@ class TestDryRunCells:
         """gemma3-1b ``train_4k``: the backward runs through the flash
         Function's recompute (the plain attention) under fake tensors;
         with block remat the layers of the pattern repeats run their
-        forward twice, the remainder layers once."""
+        forward twice, one row a rank (the batch over both mesh dims),
+        one kernel call each time; the remainder layers run once, their
+        rows over ``data`` only, where the 16 model ranks share the one
+        kv head and attend 2 query chunks each (c = 4: 2 calls)."""
         from repro_torch.configs import get_config
 
         cfg = get_config("gemma3-1b")
@@ -121,8 +124,8 @@ class TestDryRunCells:
         assert r["chips"] == 256 and r["step_kind"] == "train"
         assert cfg.remat == "block" and cfg.remainder_layers > 0
         assert r["kernel_calls"] == {
-            "flash_attention": cfg.n_layers
-            + cfg.full_repeats * len(cfg.pattern)}
+            "flash_attention": 2 * cfg.full_repeats * len(cfg.pattern)
+            + 2 * cfg.remainder_layers}
         assert r["collectives"]["all-reduce"] > 0
         # the backward's work: more than the forward's 2 N D a device
         assert r["roofline"]["useful_flops_ratio"] > 0.1
@@ -178,6 +181,20 @@ r["long_ok"] = sorted(D.LONG_OK)
 r["skip_reason"] = D.cell_is_skipped("granite-8b", "long_500k")
 print("RESULT_JSON:" + json.dumps(r, default=str))
 '''
+
+
+def test_decode_looks_up_the_embedding_where_it_lies(decode_single):
+    """granite-8b ``decode_32k``: each model rank looks up its own
+    sixteenth of the vocab and the rows reduce (an all-reduce of the
+    rank's 8 x 1 x 4096 bf16 rows; the JAX package's HLO reduces the
+    same lookup in f32): no all-gather of the table, whose rank shard
+    is 25 MB, and a few MB of collectives a step where gathering the
+    table took 403.8 MB."""
+    r = decode_single
+    table_shard = 49152 // 16 * 4096 * 2
+    assert r["collective_largest"]["all-gather"] < table_shard // 1000
+    assert r["collective_largest"]["all-reduce"] < table_shard // 100
+    assert r["collective_bytes_per_device"] < 10 * 2 ** 20
 
 
 def test_decode_flops_equal_the_references_matrix_products(decode_single):

@@ -48,13 +48,14 @@ def _port_cell(arch: str, shape: str) -> dict:
 
 def test_llama4_scout_decode_cell():
     """One decode kernel a layer, and its flop formula's count of them:
-    the 128 rows split 16 ways over ``data``, the 40 q heads whole on
-    every model rank (they do not split 16 ways), every one of the
-    32,768 cache slots, 4 D flops a slot.  The JAX package's partitioned
-    HLO holds the same products but splits each kv head's 128-wide dim
-    over the two model ranks of its group of 5 q heads (a dot of
-    f32[8, 5, 32768] over 64): its attention is a sixteenth of the
-    port's, and every other product is equal."""
+    the 128 rows split 16 ways over ``data``; the 8 kv heads do not
+    split over the 16 model ranks, so the two ranks that share each
+    attend its 5 q heads over half its 32,768 slots apiece and merge
+    the halves by their log-sum-exps; 4 D flops a slot.  The JAX
+    package's partitioned HLO splits each kv head's 128-wide dim over
+    the same two ranks instead (a dot of f32[8, 5, 32768] over 64): the
+    same attention flops, and every other product is equal too, so the
+    port's count is the JAX package's dot flops exactly."""
     from repro_torch.configs import get_config
     from test_torch_dryrun import _REFERENCE, _run
 
@@ -62,19 +63,17 @@ def test_llama4_scout_decode_cell():
     r = _port_cell("llama4-scout-17b-a16e", "decode_32k")
     assert r["kernel_calls"] == {"decode_attention": cfg.n_layers}
     rows, slots = 128 // 16, 32768
-    attention = cfg.n_layers * 4 * rows * cfg.n_heads * slots * cfg.head_dim
-    assert attention < r["flops_per_device"] < 2 * attention
+    group = cfg.n_heads // cfg.n_kv_heads
+    attention = cfg.n_layers * 4 * rows * group * (slots // 2) \
+        * cfg.head_dim
+    assert attention == 48 * 4 * 8 * 5 * 16384 * 128 == 16_106_127_360
+    assert attention < r["flops_per_device"] < 3 * attention
     assert r["tokens_per_step"] == 128 and r["step_kind"] == "decode"
 
     ref = _run(_REFERENCE.replace('"granite-8b", "decode_32k"',
                                   '"llama4-scout-17b-a16e", "decode_32k"'))
     assert ref["status"] == "ok" and ref["chips"] == 256
-    group = cfg.n_heads // cfg.n_kv_heads
-    ref_attention = cfg.n_layers * 4 * rows * group * slots \
-        * (cfg.head_dim // 2)
-    assert attention == 16 * ref_attention
-    assert r["flops_per_device"] - attention \
-        == ref["dot_flops"] - ref_attention
+    assert r["flops_per_device"] == ref["dot_flops"] == 34_508_963_840
 
 
 def test_deepseek_v2_prefill_cell():

@@ -223,46 +223,130 @@ def restore(rank, mesh, ckpt_dir):
 
 DECODE_ARCHS = ("granite-8b-smoke", "gemma3-1b-smoke")
 DECODE_B, DECODE_SLOTS, DECODE_POS = 4, 16, 11
+# q and kv heads of split_config by mesh shape: "model" cannot split the
+# kv heads, and r = 2 ranks share each with d = gcd(g, 2) = 1, so each
+# kv head's keys (decode) and queries (forward) split c = 2 ways
+SPLIT_HEADS = {(1, 4): (6, 2), (2, 2): (3, 1)}
+SPLIT_WINDOW = 8
 
 
-def sharded_decode(rank, mesh):
-    """One decode step of each ``DECODE_ARCHS`` config on parameters,
-    cache and token placed by the sharding rules (DTensor on every
-    rank) and on plain tensors: both logits and both updated caches,
-    gathered.  granite-8b-smoke's 2 kv heads split over "model";
-    gemma3-1b-smoke's one kv head cannot, so the ranks split its 4 q
-    heads within it."""
+def split_config(mesh_shape):
+    """gemma3-1b-smoke with the heads of ``SPLIT_HEADS`` and a window of
+    8: its local layers' keys start inside a query chunk of 8 (T = 32,
+    2c = 4 chunks) and their rolling caches of 8 slots roll by
+    ``DECODE_POS``."""
+    n_heads, n_kv = SPLIT_HEADS[tuple(mesh_shape)]
+    return replace(get_config(TRAIN_ARCH), n_heads=n_heads,
+                   n_kv_heads=n_kv, window=SPLIT_WINDOW)
+
+
+def _decode_pair(cfg, mesh, batch: int) -> dict:
+    """One decode step of ``cfg`` on parameters, cache and token placed
+    by the sharding rules (DTensor on every rank) and on plain tensors:
+    both logits and both updated caches, gathered."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.sharding import cache_shardings
     from repro_torch.models.decoder import init_cache, map_cache
     from repro_torch.models.model import decode_step
 
-    out = {}
-    for arch in DECODE_ARCHS:
-        cfg = get_config(arch)
-        params = init_params(cfg, 0, device="cpu")
-        gen = torch.Generator().manual_seed(1)
-        cache = map_cache(init_cache(cfg, DECODE_B, DECODE_SLOTS,
-                                     device="cpu"),
-                          lambda t: torch.randn(t.shape, generator=gen))
-        token = torch.randint(0, cfg.vocab_size, (DECODE_B, 1),
-                              generator=gen, dtype=torch.int32)
-        cell = ShapeCell("d", DECODE_SLOTS, DECODE_B, "decode")
-        plain_cache = map_cache(cache, torch.clone)
-        with torch.no_grad():
-            want, _ = decode_step(params, plain_cache, token, DECODE_POS,
-                                  cfg)
-            p = device_put(params, param_shardings(model_specs(cfg), cfg,
-                                                   mesh))
-            c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
-            t = device_put(token, batch_shardings(
-                cfg, cell, mesh, {"token": token})["token"])
-            with implicit_replication():
-                got, c = decode_step(p, c, t, DECODE_POS, cfg)
-        out[arch] = {
-            "logits": _host(got), "want": _host(want),
+    params = init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    cache = map_cache(init_cache(cfg, batch, DECODE_SLOTS, device="cpu"),
+                      lambda t: torch.randn(t.shape, generator=gen))
+    token = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                          dtype=torch.int32)
+    cell = ShapeCell("d", DECODE_SLOTS, batch, "decode")
+    plain_cache = map_cache(cache, torch.clone)
+    with torch.no_grad():
+        want, _ = decode_step(params, plain_cache, token, DECODE_POS, cfg)
+        p = device_put(params, param_shardings(model_specs(cfg), cfg, mesh))
+        c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+        t = device_put(token, batch_shardings(
+            cfg, cell, mesh, {"token": token})["token"])
+        with implicit_replication():
+            got, c = decode_step(p, c, t, DECODE_POS, cfg)
+    return {"logits": _host(got), "want": _host(want),
             "cache": [_host(x) for _, x in named_leaves(c)],
             "want_cache": [_host(x) for _, x in named_leaves(plain_cache)],
             "k_placements": str(tuple(named_leaves(c)[0][1].placements))}
+
+
+def sharded_decode(rank, mesh):
+    """One decode step of each ``DECODE_ARCHS`` config
+    (:func:`_decode_pair`): granite-8b-smoke's 2 kv heads split over
+    "model"; gemma3-1b-smoke's one kv head cannot, so the ranks split
+    its 4 q heads within it.  Under ``"split"``, :func:`split_routes`."""
+    out = {arch: _decode_pair(get_config(arch), mesh, DECODE_B)
+           for arch in DECODE_ARCHS}
+    out["split"] = split_routes(mesh)
     return out
+
+
+def split_routes(mesh) -> dict:
+    """The routes where two ranks share each kv head
+    (:func:`split_config`), each beside the same work on plain tensors:
+    a decode at batch 4 (keys split over "model") and at batch 1 (the
+    cache's slots also split over "data"), a forward and the loss and
+    gradients of a train step (queries in zig-zag chunks), and the
+    vocab-parallel lookup."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    cfg = split_config(mesh.devices.shape)
+    out = {f"decode_{b}": _decode_pair(cfg, mesh, b) for b in (DECODE_B, 1)}
+    batch = _tensors(train_batch(cfg))
+    cell = ShapeCell("t", T, B, "train")
+    p_sh = param_shardings(model_specs(cfg), cfg, mesh)
+    b_sh = batch_shardings(cfg, cell, mesh, batch)
+    params = init_params(cfg, 0, device="cpu")
+    with torch.no_grad():
+        want = forward(params, batch["tokens"], cfg)
+        p = device_put(params, p_sh)
+        toks = device_put(batch, b_sh)["tokens"]
+        with implicit_replication():
+            got = forward(p, toks, cfg)
+    out["forward"] = {"got": _host(got), "want": _host(want)}
+    masters = init_params(cfg, 0, device="cpu", masters=True)
+    loss, grads = value_and_grad(masters, batch, cfg)
+    s_loss, s_grads = value_and_grad(device_put(masters, p_sh),
+                                     device_put(batch, b_sh), cfg)
+    out["train"] = {
+        "loss": float(_host(s_loss)), "want_loss": float(loss),
+        "grads": {k: _host(v) for k, v in named_leaves(s_grads)},
+        "want_grads": {k: _host(v) for k, v in named_leaves(grads)}}
+    out["lookup"] = {name: _lookup_pair(cfg, mesh, spec)
+                     for name, spec in (("vocab", ("model", None)),
+                                        ("vocab_fsdp", ("model", "data")))}
+    return out
+
+
+def _lookup_pair(cfg, mesh, spec) -> dict:
+    """The embedding lookup of a (V, d) f32 table placed by ``spec``
+    (the vocab over "model", and the embedding dim over "data" for the
+    FSDP case) with batch-split tokens, and on plain tensors: rows, the
+    gradient of a seeded linear function of them, the collectives of
+    the lookup and the gradient's placements."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.model import _embed
+
+    gen = torch.Generator().manual_seed(2)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen)
+    tokens = torch.from_numpy(train_batch(cfg)["tokens"])
+    weight = torch.randn(B, T, cfg.d_model, generator=gen)
+    plain = table.clone().requires_grad_(True)
+    want = _embed({"embed": plain}, tokens)
+    (want * weight).sum().backward()
+    sharded = device_put(table.requires_grad_(True), NamedSharding(mesh,
+                                                                   spec))
+    toks = device_put(tokens, NamedSharding(mesh, (data_axes(mesh),)))
+    with CommDebugMode() as comm:
+        got = _embed({"embed": sharded}, toks)
+    with implicit_replication():
+        (got * weight).sum().backward()
+    return {"rows": _host(got), "want_rows": _host(want),
+            "grad": _host(sharded.grad), "want_grad": _host(plain.grad),
+            "grad_placements": str(tuple(sharded.grad.placements)),
+            "collectives": sorted(str(k).split(".")[-1]
+                                  for k in comm.get_comm_counts())}
