@@ -79,7 +79,11 @@ process per source, all at once) and drives both of the port's paths:
   ranks) with its roofline (D1); then a granite-8b decode step and a
   forward (4 layers) on the card under ``FlopCounterMode`` against the
   same steps traced on a 1 x 1 fake mesh: equal flops, and each kernel's
-  traced calls equal its launches (D2 / D3).
+  traced calls equal its launches (D2 / D3); a falcon-mamba-7b prefill
+  (4 layers, full width) the same way, whose time scans trace as the
+  custom operator ``repro_torch::ssm_scan``: equal flops and scan calls,
+  and both scan operators bitwise equal to their plain loops on CUDA
+  tensors, forward and gradients (D4).
 
 ``--only relational|async|attention|serving|families|training|timings``
 runs one group (for bring-up: ``relational`` leaves out A0 and A,
@@ -100,7 +104,9 @@ training --tree DIR`` runs S2, S3 or T0-T2 on that checkout's port
 phases of this checkout must equal where the single-device path is
 unchanged.  It prints one
 line per phase and each phase's seconds.  The line before the last is
-the kernels' JSON; the last line is the device JSON.  Any failure exits
+the kernels' JSON; where phase D ran, the line before it is the scan
+operators' JSON (D4; they are not kernels); the last line is the device
+JSON.  Any failure exits
 non-zero; without CUDA it exits non-zero before any result.  The script
 imports nothing of the JAX package.
 """
@@ -4459,10 +4465,161 @@ def dryrun_parity(device, smi: str) -> dict:
     return launches
 
 
+# D4: falcon-mamba-7b at full width, D_SSM_LAYERS of its 64 layers, a
+# prefill of D_PREFILL; the scan operators' bitwise checks at the shapes
+# its path gives ssm_scan and at recurrentgemma-9b's width for rglru_scan
+D_SSM_LAYERS = 4
+# the time scans: custom operators under a trace, not kernels (their
+# implementation is the plain loop on any device)
+SCAN_OPERATORS = (
+    ("ssm_scan", "src/repro_torch/models/scan_ops.py",
+     "src/repro/models/ssm.py:50"),
+    ("rglru_scan", "src/repro_torch/models/scan_ops.py",
+     "src/repro/models/rglru.py:47"))
+# filled by D4: one entry a scan operator, printed on a line of its own
+OPERATOR_ROWS: list = []
+
+
+def scan_operators_bitwise(device, b: int, t: int) -> dict:
+    """Each scan operator on CUDA tensors (bf16, seeded) against its
+    plain loop: the output and every input's gradient must be bitwise
+    equal.  ssm_scan at falcon-mamba-7b's d_inner and state, rglru_scan at
+    recurrentgemma-9b's width.  Returns the largest |difference| of each
+    (0.0 when equal) and the loop's CUDA-event ms."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import scan_ops
+
+    class Passthrough(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    ssm_cfg, lru_cfg = get_config("falcon-mamba-7b"), \
+        get_config("recurrentgemma-9b")
+    di, st, w = ssm_cfg.d_inner, ssm_cfg.ssm_state, lru_cfg.lru_width_actual
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SERVE_SEED)
+    bf16 = torch.bfloat16
+    ssm_in = [torch.nn.functional.softplus(_randn((b, t, di), bf16, device,
+                                                  gen)),
+              _randn((b, t, st), bf16, device, gen),
+              _randn((b, t, st), bf16, device, gen),
+              _randn((b, t, di), bf16, device, gen),
+              -torch.exp(_randn((di, st), bf16, device, gen)),
+              _randn((di,), bf16, device, gen)]
+    lru_in = [torch.sigmoid(_randn((b, t, w), bf16, device, gen) + 2.0),
+              _randn((b, t, w), bf16, device, gen)]
+    out = {}
+    for name, wrapper, loop, inputs in (
+            ("ssm_scan", scan_ops.ssm_scan, scan_ops.ssm_scan_loop, ssm_in),
+            ("rglru_scan", scan_ops.rglru_scan, scan_ops.rglru_scan_loop,
+             lru_in)):
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        want = loop(*leaves)
+        g = _randn(tuple(want.shape), bf16, device, gen)
+        want_grads = torch.autograd.grad(want, leaves, g)
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        with Passthrough():
+            got = wrapper(*leaves)
+            if f"repro_torch_{name}" not in type(got.grad_fn).__name__:
+                raise AssertionError(f"D4: {name} did not take its "
+                                     f"operator under a dispatch mode")
+            grads = torch.autograd.grad(got, leaves, g)
+        err = max(float((a.detach().float() - b_.detach().float()).abs().max())
+                  for a, b_ in zip((got,) + grads, (want,) + want_grads))
+        if not (torch.equal(got, want)
+                and all(torch.equal(a, b_)
+                        for a, b_ in zip(grads, want_grads))):
+            raise AssertionError(f"D4: {name}'s operator on CUDA tensors "
+                                 f"differs from its plain loop (largest "
+                                 f"|difference| {err})")
+        with torch.no_grad():
+            ms = time_ms(lambda: loop(*inputs), reps=5, warmup=1)
+        out[name] = {"max_abs_err": err, "loop_ms": ms,
+                     "shape": [tuple(x.shape) for x in inputs]}
+    return out
+
+
+def dryrun_ssm(device, smi: str) -> None:
+    """D4: falcon-mamba-7b at full width, D_SSM_LAYERS layers, a prefill
+    of D_PREFILL on the card under ``FlopCounterMode`` (the time scans
+    take their operator ``repro_torch::ssm_scan`` there, whose
+    implementation is the plain loop), then the same step traced by the
+    dry run on a 1 x 1 fake mesh: the flop totals must be equal, the
+    operator's traced calls must equal the card run's, and its flops
+    the formula's.  Then the scan operators against their plain loops on
+    CUDA tensors, bitwise (:func:`scan_operators_bitwise`)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import ShapeCell, forward, init_params
+    from repro_torch.models import scan_ops
+
+    cfg = replace(get_config("falcon-mamba-7b"), n_layers=D_SSM_LAYERS)
+    b, t = D_PREFILL
+    params = init_params(cfg, SERVE_SEED, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SERVE_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=gen,
+                           device=device, dtype=torch.int32)
+    scan_ops.reset_calls()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        out = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    calls = scan_ops.CALLS["ssm_scan"]
+    if not bool(torch.isfinite(out.float()).all()) \
+            or tuple(out.shape) != (b, t, cfg.vocab_size):
+        raise AssertionError(f"D4: logits {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out.float()).all())}")
+    op_flops = fc.get_flop_counts()["Global"].get(
+        torch.ops.repro_torch.ssm_scan, 0)
+    formula = D_SSM_LAYERS * scan_ops.ssm_scan_flops(
+        (b, t, cfg.d_inner), (b, t, cfg.ssm_state), (b, t, cfg.ssm_state),
+        (b, t, cfg.d_inner), (cfg.d_inner, cfg.ssm_state), (cfg.d_inner,))
+    fake = trace_step(cfg, ShapeCell("prefill", t, b, "prefill"), 1,
+                      lambda devices: make_test_mesh(
+                          (1, 1), ("data", "model"), devices=devices))
+    if calls != D_SSM_LAYERS or fake["operator_calls"] != {"ssm_scan": calls} \
+            or fake["flops"] != fc.get_total_flops() or op_flops != formula:
+        raise AssertionError(
+            f"D4: the card ran ssm_scan {calls} times for {op_flops} of "
+            f"{fc.get_total_flops()} flops (formula {formula}); the dry "
+            f"run called {fake['operator_calls']} for {fake['flops']} flops")
+    log(f"D4 prefill: falcon-mamba-7b, {D_SSM_LAYERS} of 64 layers, batch "
+        f"{b} x {t}: {fake['flops']} flops on the card and in the 1 x 1 dry "
+        f"run, equal; ssm_scan {calls} calls on the card and traced, equal, "
+        f"{op_flops} flops (2 B T di st a layer); trace "
+        f"{fake['trace_seconds']:.2f} s [{smi}]")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = scan_operators_bitwise(device, b, t)
+    for name, src, line in SCAN_OPERATORS:
+        c = checks[name]
+        log(f"D4 {name} on CUDA tensors {c['shape'][0]} bf16: operator = "
+            f"plain loop, output and gradients bitwise; the loop "
+            f"{c['loop_ms']:.2f} ms (CUDA events) [{smi}]")
+        OPERATOR_ROWS.append(dict(
+            name=name, kernel=False, route="custom operator (plain loop)",
+            source=src, replaces=line,
+            calls=calls if name == "ssm_scan" else 0,
+            traced_calls=fake["operator_calls"].get(name, 0),
+            flops=op_flops if name == "ssm_scan" else 0,
+            max_abs_err=c["max_abs_err"], loop_ms=c["loop_ms"]))
+
+
 def dryrun_phase(cuda, smi: str) -> dict:
-    """Phase D: D1, then D2-D3; returns the card's launches by kernel."""
+    """Phase D: D1, then D2-D3, then D4; returns the card's launches by
+    kernel."""
     dryrun_cell(smi)
-    return dryrun_parity(cuda, smi)
+    launches = dryrun_parity(cuda, smi)
+    dryrun_ssm(cuda, smi)
+    return launches
 
 
 def attention_wrapper_timings(device, smi: str) -> None:
@@ -4606,6 +4763,8 @@ def main(argv=None) -> int:
                 "parse_fields" if entry["name"] == "parse_i32"
                 else entry["name"], 0)
     log(f"total {time.perf_counter() - t_all:.1f} s")
+    if OPERATOR_ROWS:
+        print(json.dumps({"operators": OPERATOR_ROWS}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

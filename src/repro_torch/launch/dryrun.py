@@ -27,7 +27,12 @@ The attention kernels are reached as on the card, through their custom
 operators (``torch.ops.repro_torch.flash_attention`` /
 ``decode_attention``), which fake tensors take on any device and whose
 fake implementations return empty outputs of the right shape; their
-flop formulas count the attention.
+flop formulas count the attention.  The Mamba and RG-LRU time scans are
+custom operators too (``torch.ops.repro_torch.ssm_scan`` /
+``rglru_scan`` and their backwards, ``models/scan_ops.py``), so that a
+trace dispatches one op a layer where the plain loop dispatches a few
+a time step (32,768 steps at ``prefill_32k``); each rank scans its
+local rows and channels, with no collective.
 
 What :class:`StepCounter` counts, per device (rank 0's local shards):
 
@@ -84,6 +89,7 @@ from ..models.config import ArchConfig
 from ..models.decoder import init_cache
 from ..models.model import (SHAPES, ShapeCell, decode_step, forward,
                             get_shape, input_specs, model_specs)
+from ..models.scan_ops import OPERATORS as SCAN_OPERATORS
 from ..train.optimizer import OptConfig
 from ..train.train_step import make_train_step
 from .mesh import Mesh, device_mesh, make_production_mesh
@@ -146,7 +152,8 @@ class StepCounter(TorchDispatchMode):
     """Counts the ops that run on local tensors: flops (by
     ``flop_registry``, decomposing what has no formula as
     ``FlopCounterMode`` does), bytes, functional collectives, calls of
-    the port's custom kernels (``kernel_calls``) and live storage bytes.
+    the port's custom kernels (``kernel_calls``) and of its scan
+    operators (``operator_calls``), and live storage bytes.
 
     An op on DTensors is handed back to DTensor (``NotImplemented``),
     which dispatches its local ops and collectives to this mode again.
@@ -160,6 +167,7 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0
         self.collectives = []            # (op name, result bytes)
         self.kernel_calls: Dict[str, int] = {}
+        self.operator_calls: Dict[str, int] = {}
         self.live = 0
         self.peak = 0
         self.paused = 0
@@ -212,7 +220,9 @@ class StepCounter(TorchDispatchMode):
         ns = func.namespace
         if ns == "repro_torch":
             name = packet.__name__
-            self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
+            calls = self.operator_calls if name in SCAN_OPERATORS \
+                else self.kernel_calls
+            calls[name] = calls.get(name, 0) + 1
         if ns == "_c10d_functional":
             if packet.__name__ != "wait_tensor":
                 self.collectives.append(
@@ -431,8 +441,8 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, n_ranks: int,
     rank 0's counts: ``flops``, ``bytes``, ``collectives`` (as
     :func:`~.roofline.collective_bytes_from_ops` gives them),
     ``largest`` (the largest result of each collective op),
-    ``kernel_calls``, ``peak_bytes`` and the seconds it took to build
-    the fake arguments and to run the step."""
+    ``kernel_calls``, ``operator_calls``, ``peak_bytes`` and the seconds
+    it took to build the fake arguments and to run the step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -473,6 +483,7 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, n_ranks: int,
             "collectives": collective_bytes_from_ops(counter.collectives),
             "largest": largest,
             "kernel_calls": counter.kernel_calls,
+            "operator_calls": counter.operator_calls,
             "peak_bytes": counter.peak, "build_seconds": t_build,
             "trace_seconds": time.time() - t0 - t_build}
 
@@ -526,6 +537,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
             "collective_counts": coll["op_counts"],
             "collective_largest": counts["largest"],
             "kernel_calls": counts["kernel_calls"],
+            "operator_calls": counts["operator_calls"],
             "memory": {"peak_bytes_per_device_est": counts["peak_bytes"]},
             "params_total": total,
             "params_active": active,

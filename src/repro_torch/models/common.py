@@ -216,7 +216,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         # nonzero term) each reduce over the vocab slices with one
         # all-reduce, and the logits are never gathered
         top = lf.detach().amax(dim=-1, keepdim=True)
-        lse = torch.log(torch.exp(lf - top).sum(-1)) + top[..., 0]
+        total = torch.exp(lf - top).sum(-1)
+        if _rows_over_several_dims(total):
+            # summed whole at once: left partial, DTensor reduce-scatters
+            # it over the tokens, the logits' gradient comes back split
+            # over the tokens, and the unembedding's gradient flattens
+            # (B, T) into a token split whose offsets DTensor reads from
+            # a tensor, which a fake tensor cannot give
+            total = reduce_partial(total)
+        lse = torch.log(total) + top[..., 0]
         vocab = torch.arange(lf.shape[-1], device=labels.device)
         hit = (vocab == labels.long()[..., None]).to(lf.dtype)
         gold = (lf * hit).sum(-1)
@@ -258,6 +266,43 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
            for pl in x.placements]
     return x if pls == list(x.placements) else \
         x.redistribute(x.device_mesh, pls)
+
+
+def split_by_rows_only(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor (B, ...) kept split along its rows (the batch) only:
+    every other placement (a partial sum, a split of the tokens or of
+    the features) made whole, as a tensor-parallel block takes its
+    input; anything else as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pls = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
+    return x if pls == list(x.placements) else \
+        x.redistribute(x.device_mesh, pls)
+
+
+def _rows_over_several_dims(x) -> bool:
+    """Whether DTensor ``x`` is split along its rows (the batch) by more
+    than one mesh dim (``pod`` and ``data``)."""
+    from torch.distributed.tensor import Shard
+
+    return sum(pl == Shard(0) for pl in x.placements) > 1
+
+
+def settle_residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream between blocks.  Under autograd, on a mesh
+    that splits the batch over more than one dim (``pod`` and ``data``),
+    a DTensor stream is made whole but for its rows
+    (:func:`split_by_rows_only`): the blocks leave it a partial sum under
+    autograd (:func:`reduce_row_parallel`), DTensor then sums it into a
+    split of the tokens, a later product flattens that with the rows
+    into a split whose offsets DTensor reads from a tensor, and a fake
+    tensor cannot give them.  Elsewhere ``x`` as it is."""
+    if not (_is_dtensor(x) and torch.is_grad_enabled()
+            and _rows_over_several_dims(x)):
+        return x
+    return split_by_rows_only(x)
 
 
 def reduce_row_parallel(x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ from . import attention as A
 from . import ffn as F
 from . import rglru as R
 from . import ssm as S
-from .common import rmsnorm, rmsnorm_spec
+from .common import rmsnorm, rmsnorm_spec, settle_residual
 from .config import ArchConfig
 
 
@@ -102,6 +102,7 @@ def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
 def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   ffn_kind: str, positions: torch.Tensor, dtype
                   ) -> torch.Tensor:
+    x = settle_residual(x)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "local"):
         h = A.gqa_forward(p["mix"], h, cfg, window=_window(cfg, kind),
@@ -113,7 +114,7 @@ def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
         return x + S.mamba_forward(p["mix"], h, cfg, dtype)
     elif kind == "rglru":
         h = R.rglru_forward(p["mix"], h, cfg, dtype)
-    x = x + h
+    x = settle_residual(x + h)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype)
 

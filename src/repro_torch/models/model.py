@@ -18,7 +18,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .common import (ParamSpec, ParamTree, _is_dtensor, constrain,
                      cross_entropy, materialize_params, reduce_partial,
-                     rmsnorm, rmsnorm_spec, shard_range, storage_dtype)
+                     rmsnorm, rmsnorm_spec, settle_residual, shard_range,
+                     storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -147,7 +148,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     x = decoder_forward(params["layers"], x, cfg, positions, dtype)
-    return _logits(params, x, cfg)
+    return _logits(params, settle_residual(x), cfg)
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig

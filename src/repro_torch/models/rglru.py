@@ -3,9 +3,11 @@
 Real-Gated Linear Recurrent Unit: per-channel learned decay gated by
 the input, h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t), inside
 a gated two-branch block with a short causal conv (no SiLU after it,
-unlike Mamba).  Decode state is O(1) per layer (conv window + h) and is
-updated in place, as the other blocks' caches are.  Plain torch: the
-JAX package has no Pallas kernel for the block either.
+unlike Mamba).  The parallel forward's recurrence is
+``scan_ops.rglru_scan``, a loop over the sequence that is one custom
+operator under a trace.  Decode state is O(1) per layer (conv window +
+h) and is updated in place, as the other blocks' caches are.  Plain
+torch: the JAX package has no Pallas kernel for the block either.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from .common import ParamSpec, reduce_partial, split_by_rows_only
 from .config import ArchConfig
+from .scan_ops import rglru_scan
 from .ssm import _causal_conv
 
 _C = 8.0  # Griffin's recurrence sharpness constant
@@ -40,9 +43,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _gates(p, xc, dtype):
-    i_t = torch.sigmoid(xc @ p["w_input_gate"])
-    r_t = torch.sigmoid(xc @ p["w_rec_gate"])
+def _gates(p, xc, dtype, gate_sums=lambda t: t):
+    """(i_t, a_t, beta); ``gate_sums`` takes each gate's product before
+    its sigmoid."""
+    i_t = torch.sigmoid(gate_sums(xc @ p["w_input_gate"]))
+    r_t = torch.sigmoid(gate_sums(xc @ p["w_rec_gate"]))
     log_a = -_C * F.softplus(p["lam"].float()) * r_t.float()
     a_t = torch.exp(log_a).to(dtype)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)
@@ -50,19 +55,37 @@ def _gates(p, xc, dtype):
     return i_t, a_t, beta
 
 
+def _scatter_channels(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor of partial sums (B, T, w), the gates' row-parallel
+    products, summed and split along its channels (a reduce-scatter), so
+    that the gates, the recurrence's inputs and the scan stay on each
+    rank's channels; DTensor would otherwise sum them whole, and gather
+    the scan's inputs to that layout.  Anything else as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    pls = [Shard(t.ndim - 1) if pl.is_partial() else pl
+           for pl in t.placements]
+    return t if pls == list(t.placements) else \
+        t.redistribute(t.device_mesh, pls)
+
+
 def rglru_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                   ) -> torch.Tensor:
+    # on DTensors the block reads the residual stream whole but for its
+    # rows (the attention and FFN blocks leave it partial under
+    # autograd, and DTensor sums it into a split of the tokens), so that
+    # its products, the convolution and the scan split the channels
+    x = split_by_rows_only(x)
     xb = x @ p["in_x"]                                 # (B, T, w)
     gate = _gelu(x @ p["in_gate"])
     xc = _causal_conv(xb, p["conv_w"], p["conv_b"])
-    i_t, a_t, beta = _gates(p, xc, dtype)
+    i_t, a_t, beta = _gates(p, xc, dtype, _scatter_channels)
     gx = beta * (i_t * xc)
-    h = torch.zeros_like(xc[:, 0])
-    hs = []
-    for t in range(xc.shape[1]):
-        h = a_t[:, t] * h + gx[:, t]
-        hs.append(h)
-    return (torch.stack(hs, dim=1) * gate) @ p["out"]
+    # a row-parallel product on DTensors: summed now, so that the
+    # residual stream and the next norm are whole
+    return reduce_partial((rglru_scan(a_t, gx) * gate) @ p["out"])
 
 
 def rglru_init_cache(cfg: ArchConfig, batch: int, dtype, device=None

@@ -1,7 +1,8 @@
 """Mamba-1 selective SSM block (falcon-mamba-7b).
 
 The parallel forward runs the time recurrence as a loop over the
-sequence (the JAX package's ``lax.scan``).  Decode keeps an O(1)-size
+sequence (the JAX package's ``lax.scan``), through ``scan_ops.ssm_scan``,
+which is one custom operator under a trace.  Decode keeps an O(1)-size
 state per layer, (conv window, SSM state), and updates it IN PLACE, as
 ``attention.gqa_decode`` does its KV cache — which is also why the
 serving-layer MQO gives SSM prefixes a near-zero knapsack weight.  The
@@ -20,8 +21,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from .common import ParamSpec, reduce_partial
 from .config import ArchConfig
+from .scan_ops import on_local_shards, ssm_scan
 
 
 def mamba_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -47,7 +49,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     A cross-correlation, as the JAX package's ``conv_general_dilated``:
     out[t] = b + sum_j w[:, j] * x[t + j - (K - 1)], zeros before t = 0.
     Written as K shifted multiply-adds, so that no cuDNN convolution
-    (TF32 by default on the card) computes it."""
+    (TF32 by default on the card) computes it.  On DTensors each rank
+    convolves its own rows and channels (``scan_ops.on_local_shards``):
+    on torch 2.11, DTensor's propagation through this function gave a
+    placement list shorter than the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return on_local_shards(_causal_conv, (x, w, b),
+                               ("act", "chans", "chans"))
     kk = w.shape[1]
     t = x.shape[1]
     xp = F.pad(x, (0, 0, kk - 1, 0))                   # (B, T + K - 1, di)
@@ -67,27 +77,38 @@ def _a_matrix(p, dtype) -> torch.Tensor:
     return (-torch.exp(p["A_log"].float())).to(dtype)
 
 
-def _ssm_scan(dt, Bm, Cm, x_in, A, D):
-    """dt, x_in: (B, T, di); Bm, Cm: (B, T, st); A: (di, st)."""
-    da = torch.exp(dt[..., None] * A)                  # (B, T, di, st)
-    db_x = (dt * x_in)[..., None] * Bm[:, :, None, :]  # (B, T, di, st)
-    h = torch.zeros_like(da[:, 0])
-    ys = []
-    for t in range(da.shape[1]):
-        h = da[:, t] * h + db_x[:, t]
-        ys.append(torch.einsum("bds,bs->bd", h, Cm[:, t]))
-    return torch.stack(ys, dim=1) + x_in * D
+def _in_proj(x: torch.Tensor, w: torch.Tensor):
+    """(x_in, z) = the two halves of ``x @ w``.  Where ``w`` is a DTensor
+    whose columns a mesh dim splits, the halves of the product would
+    each lie on half of those ranks, and DTensor gathers the (B, T, 2 di)
+    product to take them.  So the weight, (d, 2 di), is gathered along
+    its columns instead, halved on each rank, and each half placed back
+    as ``w`` is multiplies ``x`` on its own."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(w, DTensor):
+        return (x @ w).chunk(2, dim=-1)
+    mesh = w.device_mesh
+    whole = [Replicate() if pl == Shard(1) else pl for pl in w.placements]
+    halves = w.redistribute(mesh, whole).to_local().chunk(2, dim=-1)
+    return tuple(x @ DTensor.from_local(h, mesh, whole, run_check=False
+                                        ).redistribute(mesh, w.placements)
+                 for h in halves)
 
 
 def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                   ) -> torch.Tensor:
-    xz = x @ p["in_proj"]
-    x_in, z = xz.chunk(2, dim=-1)
+    x_in, z = _in_proj(x, p["in_proj"])
     x_in = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
-    dt, Bm, Cm = _split_proj(x_in @ p["x_proj"], cfg)
+    # a row-parallel product on DTensors, (B, T, dt_rank + 2 st): summed
+    # now, so that dt_proj multiplies each rank's columns only and the
+    # scan reads Bm and Cm whole
+    dt, Bm, Cm = _split_proj(reduce_partial(x_in @ p["x_proj"]), cfg)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
-    y = _ssm_scan(dt, Bm, Cm, x_in, _a_matrix(p, dtype), p["D"].to(dtype))
-    return (y * F.silu(z)) @ p["out_proj"]
+    y = ssm_scan(dt, Bm, Cm, x_in, _a_matrix(p, dtype), p["D"].to(dtype))
+    # a row-parallel product on DTensors: summed now, so that the next
+    # block's norm and in-projection read a whole residual stream
+    return reduce_partial((y * F.silu(z)) @ p["out_proj"])
 
 
 def mamba_init_cache(cfg: ArchConfig, batch: int, dtype, device=None

@@ -350,3 +350,50 @@ def _lookup_pair(cfg, mesh, spec) -> dict:
             "grad_placements": str(tuple(sharded.grad.placements)),
             "collectives": sorted(str(k).split(".")[-1]
                                   for k in comm.get_comm_counts())}
+
+
+SCAN_ARCHS = ("falcon-mamba-7b-smoke", "recurrentgemma-9b-smoke")
+SCAN_B, SCAN_T = 4, 12
+
+
+def scan_blocks(rank, mesh):
+    """The loss and every master's gradient of each ``SCAN_ARCHS``
+    config on parameters and batch placed by the sharding rules (DTensor
+    on every rank) and on plain tensors: the Mamba in-projection's
+    halves, the RG-LRU gates' reduce-scatter, both scans on each rank's
+    rows and channels (``models/scan_ops.py``) and the blocks' summed
+    outputs, forward and backward.  Also the scans' calls and the
+    placements of the scans' outputs."""
+    from repro_torch.models import scan_ops
+
+    out = {}
+    for arch in SCAN_ARCHS:
+        cfg = get_config(arch)
+        params = init_params(cfg, 0, device="cpu", masters=True)
+        batch = _tensors(train_batch(cfg, SCAN_B, SCAN_T))
+        loss, grads = value_and_grad(params, batch, cfg)
+        p_sh = param_shardings(model_specs(cfg), cfg, mesh)
+        cell = ShapeCell("t", SCAN_T, SCAN_B, "train")
+        placed = []
+        real = scan_ops.on_local_shards
+
+        def spy(fn, args, kinds):
+            y = real(fn, args, kinds)
+            placed.append(str(tuple(y.placements)))
+            return y
+
+        scan_ops.reset_calls()
+        scan_ops.on_local_shards = spy
+        try:
+            d_loss, d_grads = value_and_grad(
+                device_put(params, p_sh),
+                device_put(batch, batch_shardings(cfg, cell, mesh, batch)),
+                cfg)
+        finally:
+            scan_ops.on_local_shards = real
+        out[arch] = {
+            "loss": float(_host(d_loss)), "want_loss": float(loss),
+            "grads": {k: _host(v) for k, v in named_leaves(d_grads)},
+            "want_grads": {k: _host(v) for k, v in named_leaves(grads)},
+            "calls": dict(scan_ops.CALLS), "placements": placed}
+    return out
