@@ -61,6 +61,18 @@ process per source, all at once) and drives both of the port's paths:
   card and on the CPU, the card's windows replayed on the CPU for equal
   tables and MQO decisions, its speed gate printed (E3); and the
   serving launcher on the card (E4);
+* properties (P), after the surfaces: the engine's bit-identities on
+  CUDA tensors, drawn by ``tests/torch_properties.py`` as the CPU
+  suites draw them, each table also against the port's CPU run: fused
+  = eager and batched = per-query over random chains, unions, estimate
+  overflows and mixed windows, columnar and CSV (P1, every filter and
+  decoder kernel launched); a tiny budget = an unlimited one, the CE
+  pool pressed to host copies and promoted back to the card (P2);
+  MQO = no MQO and windowed ``submit`` = ``run_batch`` on seeded fuzz
+  batches, MQO decisions equal to the CPU's (P3); successes under
+  injected faults at every point = the fault-free run, over three
+  fault seeds, every degradation an injected fault's (P4); pruned =
+  unpruned over range and hash partitions, with the pid pool (P5);
 * multi-device (M), last: the relational stream at SF1 on a row-sharded
   session (one controller; every card up to 4, else 4 shards of
   ``cuda:0``) against the single-device card session, each shard's
@@ -89,13 +101,13 @@ process per source, all at once) and drives both of the port's paths:
 runs one group (for bring-up: ``relational`` leaves out A0 and A,
 ``async`` runs the CSV decoder, A0 and A, ``serving``, ``families`` and
 ``training`` run S1 first, ``timings`` only times the filter kernel,
-the decoder and the two attention wrappers); ``--only sharded`` runs M
-and ``--only dryrun`` D alone (their kernels lines carry launches
-only); ``--only surfaces`` runs E1-E4, and ``--only benches``
-runs the other bench scripts on the card at the JAX benches' sizes and
-the macro bench at SF1 (not part of the whole run; its kernels line
-carries each kernel's launches by bench); with no argument every other
-phase runs.  ``--only timings --tree
+the decoder and the two attention wrappers); ``--only sharded`` runs M,
+``--only dryrun`` D and ``--only properties`` P alone (their kernels
+lines carry launches only); ``--only surfaces`` runs E1-E4, and
+``--only benches`` runs the other bench scripts on the card at the JAX
+benches' sizes and the macro bench at SF1 (not part of the whole run;
+its kernels line carries each kernel's launches by bench); with no
+argument every other phase runs.  ``--only timings --tree
 DIR`` times the kernels of another checkout through its own wrappers,
 so that an earlier commit's kernels (``git archive`` into DIR) and this
 one's can be timed in turns on one card; ``--only serving|families|
@@ -4622,6 +4634,418 @@ def dryrun_phase(cuda, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase P: the engine's property suites on the card
+# ---------------------------------------------------------------------------
+P_FAULT_SEEDS = (0, 1, 2)          # FAULT_SEED values of P4
+P_SOAK_WINDOWS = 12                # P4's soak windows a seed
+P_MQO_BATCHES = 8                  # P3's seeded batches a seed (seeds 0, 1)
+
+
+def p_props():
+    """``tests/torch_properties.py``: the CPU suites' seeded draws."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_properties
+
+    return torch_properties
+
+
+def p_bitwise(a, b, label: str) -> None:
+    """Two runs on one device: every column bitwise equal."""
+    props = p_props()
+    try:
+        props.assert_tables_bit_identical(a, b)
+    except AssertionError as e:
+        raise AssertionError(f"{label}: {e}") from None
+
+
+def p_launches(K, before: dict) -> dict:
+    return {k: K.LAUNCHES[k] - before.get(k, 0) for k in K.LAUNCHES}
+
+
+def p_fused(device) -> dict:
+    """P1: fused = eager (``TestFusedEqualsEager``'s chains, the
+    deferred-sync draws and the two estimate overflows, which recompact;
+    ``TestUnionDeferred``'s unions) and batched = per-query
+    (``TestWindowBatchIdentity``'s windows), over columnar and CSV and
+    both kernel routes, each table also against the port's CPU run of
+    the same draw."""
+    import torch
+    from repro_torch.relational import ExecContext, execute
+
+    props, cpu = p_props(), torch.device("cpu")
+    cases = 0
+
+    def check(st, plan, label, multiset=False, **kw):
+        nonlocal cases
+        eager = execute(plan, props.eager_ctx(st, device))
+        got = execute(plan, ExecContext(catalog={"t": st}, device=device,
+                                        **kw))
+        want = execute(plan, props.eager_ctx(st, cpu))
+        if multiset:     # as test_estimate_overflow_eager_ops compares
+            if not eager.row_multiset() == got.row_multiset() == \
+                    want.row_multiset():
+                raise AssertionError(f"{label}: rows differ")
+        else:
+            p_bitwise(eager, got, label)
+            compare_tables(got, want, f"{label} vs cpu")
+        cases += 1
+        return got
+
+    for fmt in ("columnar", "csv"):
+        for pallas in (False, True):
+            for i, (st, _, plan) in enumerate(props.chain_draws(fmt,
+                                                                pallas)):
+                check(st, plan, f"P1 chain {fmt} {pallas} {i}",
+                      use_pallas_filter=pallas)
+        for i, (st, cm, plan) in enumerate(props.deferred_draws(fmt)):
+            check(st, plan, f"P1 deferred {fmt} {i}", cost_model=cm,
+                  scan_cache={})
+    overflows = 0
+    for i, (st, cm, plan, multiset) in enumerate(props.overflow_cases()):
+        got = check(st, plan, f"P1 overflow {i}", multiset, cost_model=cm)
+        # the estimate was ~0 rows; the filter kept more than 700
+        if not multiset and got.nrows <= 700:
+            raise AssertionError("P1: the estimate did not overflow")
+        overflows += 1
+    for i, (st, cm, plan) in enumerate(props.union_draws()):
+        check(st, plan, f"P1 union {i}", cost_model=cm)
+    windows = 0
+    for fmt in ("columnar", "csv"):
+        for pallas in (False, True):
+            batched, perq = props.window_sessions(fmt, pallas, device)
+            ref, _ = props.window_sessions(fmt, pallas, cpu)
+            for w in range(3):
+                rb = batched.run_batch(props.mixed_window(batched, w),
+                                       mqo=False)
+                rp = perq.run_batch(props.mixed_window(perq, w), mqo=False)
+                rc = ref.run_batch(props.mixed_window(ref, w), mqo=False)
+                if rb.metrics.batched_dispatches < 1 or \
+                        rb.metrics.batched_queries != 4:
+                    raise AssertionError(f"P1 window {fmt} {pallas} {w}: "
+                                         f"the template was not batched")
+                for j, (a, b, c) in enumerate(zip(rb.results, rp.results,
+                                                  rc.results)):
+                    label = f"P1 window {fmt} {pallas} {w}.{j}"
+                    p_bitwise(a.table, b.table, label)
+                    compare_tables(a.table, c.table, f"{label} vs cpu")
+                windows += 1
+    return dict(cases=cases, windows=windows, overflows=overflows)
+
+
+def p_budgets(device) -> dict:
+    """P2: tiny budget = unlimited budget.  The memory suite's stream
+    (``shared_batch``, CSV, 20,000 rows) on a session whose CE pool is
+    then pressed to the host tier (``MemoryManager._make_room`` of the
+    whole device budget, as the resilience soak's pulse does): every
+    CE leaves the card as a host copy; the next pass reads them and
+    promotes them back.  Tables bitwise equal to an unlimited session's,
+    and, at the 128-byte budget that drops everything, to it as well."""
+    props = p_props()
+    sess = props.memory_session(1 << 26, device, fmt="csv", nrows=20_000)
+    big = props.memory_session(1 << 30, device, fmt="csv", nrows=20_000)
+    pool = sess.memory.pools["ce"]
+    spilled = []
+    spill = pool.spill_fn
+
+    def spy(table):
+        host = spill(table)
+        spilled.append((table, host))
+        return host
+
+    pool.spill_fn = spy
+    want = [r.table for r in big.run_batch(props.shared_batch(big),
+                                           mqo=True).results]
+    cold = sess.run_batch(props.shared_batch(sess), mqo=True)
+    sess.memory._make_room(sess.memory.device_budget)
+    host = [e for e in pool.entries.values() if e.tier == "host"]
+    if not spilled or not host or any(
+            a.device.type != "cpu" for e in host
+            for a in e.payload.columns.values()):
+        raise AssertionError("P2: no CE reached the host tier as CPU "
+                             "tensors")
+    for src, dst in spilled:
+        for name, a in dst.columns.items():
+            b = src.columns[name]
+            if a.device.type != "cpu" or b.device.type != device.type:
+                raise AssertionError(f"P2: spill {b.device} -> {a.device}")
+            if device.type == "cuda" and a.data_ptr() == b.data_ptr():
+                raise AssertionError("P2: the host copy is the card's")
+    promotions = pool.stats.promotions
+    warm = sess.run_batch(props.shared_batch(sess), mqo=True)
+    promoted = pool.stats.promotions - promotions
+    back = [e for e in pool.entries.values() if e.tier == "device"]
+    if promoted <= 0 or not back or any(
+            a.device.type != device.type for e in back
+            for a in e.payload.columns.values()):
+        raise AssertionError(f"P2: {promoted} promotions, not back on "
+                             f"{device}")
+    for run in (cold, warm):
+        for i, (r, w) in enumerate(zip(run.results, want)):
+            p_bitwise(r.table, w, f"P2 query {i}")
+    tiny = props.memory_session(128, device)
+    huge = props.memory_session(1 << 30, device)
+    cases = 2 * len(want)
+    for _ in range(2):
+        rt = tiny.run_batch(props.shared_batch(tiny), mqo=True)
+        rh = huge.run_batch(props.shared_batch(huge), mqo=True)
+        for i, (a, b) in enumerate(zip(rt.results, rh.results)):
+            p_bitwise(a.table, b.table, f"P2 tiny {i}")
+            cases += 1
+    if tiny.memory.device_used > 128:
+        raise AssertionError("P2: the tiny budget was exceeded")
+    return dict(cases=cases, spills=len(spilled), host_entries=len(host),
+                promotions=promoted)
+
+
+def p_mqo(device) -> dict:
+    """P3: MQO never changes results.  ``fuzz_batches`` (the seeded
+    draws of ``TestPropertyMQONeverChangesResults``'s space): mqo=True
+    = mqo=False on the card, each table and the MQO decisions equal to
+    the port's CPU run; then windowed ``submit`` = ``run_batch``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.fingerprint import strict_fingerprint
+    from repro_torch.relational import QueryService
+
+    # the suite hands the sessions raw plans, a deprecated form
+    warnings.filterwarnings("ignore", "passing raw logical.Node",
+                            DeprecationWarning)
+    props, cpu = p_props(), torch.device("cpu")
+    sess, ref = props.fuzz_session(device), props.fuzz_session(cpu)
+    batches = selected = 0
+    for seed in (0, 1):
+        for queries, budget_log2 in props.fuzz_batches(seed, P_MQO_BATCHES):
+            base = sess.run_batch(queries, mqo=False)
+            opt = sess.run_batch(queries, mqo=True,
+                                 budget_bytes=1 << budget_log2)
+            ref.run_batch(queries, mqo=False)
+            want = ref.run_batch(queries, mqo=True,
+                                 budget_bytes=1 << budget_log2)
+            for i, (b, o, w) in enumerate(zip(base.results, opt.results,
+                                              want.results)):
+                label = f"P3 seed {seed} batch {batches} query {i}"
+                if b.table.row_multiset() != o.table.row_multiset():
+                    raise AssertionError(f"{label}: MQO changed the rows")
+                compare_tables(o.table, w.table, f"{label} vs cpu")
+            if props.batch_decisions(opt, strict_fingerprint) != \
+                    props.batch_decisions(want, strict_fingerprint):
+                raise AssertionError(f"P3 batch {batches}: MQO decisions "
+                                     f"differ from the CPU's")
+            selected += opt.mqo.report.n_selected
+            batches += 1
+    rng = np.random.default_rng(3)
+    windowed = 0
+    for queries, _ in props.fuzz_batches(2, 4):
+        max_batch = int(rng.integers(1, 7))
+        base = sess.run_batch(queries, mqo=True)
+        svc = QueryService(sess, max_batch=max_batch)
+        handles = [svc.submit(q) for q in queries]
+        svc.flush()
+        for i, (b, h) in enumerate(zip(base.results, handles)):
+            if not h.done or \
+                    b.table.row_multiset() != h.result().row_multiset():
+                raise AssertionError(f"P3 window {max_batch} query {i}: "
+                                     f"submit differs from run_batch")
+        windowed += 1
+    if not selected:
+        raise AssertionError("P3: no batch selected a CE")
+    return dict(batches=batches, selected_ces=selected, windowed=windowed)
+
+
+def p_faults(device) -> dict:
+    """P4: successes under injected faults = the fault-free run, for
+    FAULT_SEED 0, 1, 2: ``test_resilience.py``'s schedules (scan_h2d,
+    kernel_launch, batched_launch, ce_admission, window_close),
+    spill_to_host at rate 1.0 under a pressure pulse, pid_pool at rate
+    1.0, and its soak's rates over P_SOAK_WINDOWS windows.  Every
+    successful table equals the fault-free card run's and the port's
+    CPU run's; faults were injected; every degradation event is an
+    injected fault's (on the card a real error gives up at once)."""
+    import random
+
+    import torch
+
+    from repro_torch.core.faults import FAULT_POINTS
+    from repro_torch.relational import QueryService
+
+    props, cpu = p_props(), torch.device("cpu")
+    ref = props.res_session(device)
+    ref_cpu = props.res_session(cpu)
+    injected = events = runs = 0
+
+    def check(batch, base, want, label):
+        nonlocal events, runs
+        evs = batch.resilience.get("events", [])
+        injected_here = any("InjectedFault" in e.get("error", "")
+                            or e.get("point") in FAULT_POINTS for e in evs)
+        for e in evs:
+            events += 1
+            # a CE poisoned by an injected fault sends its other
+            # consumers to their residual plans without the cause
+            if not ("InjectedFault" in e.get("error", "")
+                    or e.get("point") in FAULT_POINTS
+                    or (e["action"] == "fallback" and injected_here)):
+                raise AssertionError(f"{label}: a real error degraded: {e}")
+        for i, (r, b, w) in enumerate(zip(batch.results, base.results,
+                                          want.results)):
+            if r is not None:
+                p_bitwise(r.table, b.table, f"{label} query {i}")
+                compare_tables(r.table, w.table, f"{label} {i} vs cpu")
+                runs += 1
+
+    for seed in P_FAULT_SEEDS:
+        for point, queries, mqo in (
+                ("scan_h2d", props.res_queries, True),
+                ("kernel_launch", lambda s: props.res_queries(s)[:1], True),
+                ("batched_launch", props.batched_template, False),
+                ("ce_admission",
+                 lambda s: [props.res_queries(s)[0]] * 3, True),
+                ("window_close", lambda s: props.res_queries(s)[:2], True)):
+            sess = props.res_session(device, config=props.res_cfg(
+                seed=seed, schedule={point: (0,)}))
+            batch = sess.run_batch(queries(sess), mqo=mqo)
+            check(batch, ref.run_batch(queries(ref), mqo=mqo),
+                  ref_cpu.run_batch(queries(ref_cpu), mqo=mqo),
+                  f"P4 {point} seed {seed}")
+            fired = sess.fault_injector.n_fired
+            if not fired:
+                raise AssertionError(f"P4 {point}: nothing was injected")
+            injected += fired
+            if sess.memory.audit():
+                raise AssertionError(f"P4 {point}: {sess.memory.audit()}")
+        # spill_to_host at rate 1.0: the pulse's spills fail and drop
+        sess = props.res_session(device, config=props.res_cfg(
+            seed=seed, rates={"spill_to_host": 1.0}))
+        qs = lambda s: [props.res_queries(s)[0]] * 3  # noqa: E731
+        sess.run_batch(qs(sess))
+        sess.memory._make_room(sess.memory.device_budget)
+        check(sess.run_batch(qs(sess)), ref.run_batch(qs(ref)),
+              ref_cpu.run_batch(qs(ref_cpu)), f"P4 spill seed {seed}")
+        if not sess.memory.pools["ce"].stats.spill_failures:
+            raise AssertionError("P4 spill_to_host: no spill failed")
+        injected += sess.fault_injector.n_fired
+        # pid_pool at rate 1.0: stats-only pruning, never a failure
+        sess = props.pid_session(device, props.res_cfg(
+            seed=seed, rates={"pid_pool": 1.0}))
+        s1, p1 = props.seed_then_probe(sess)
+        s0, p0 = props.seed_then_probe(props.pid_session(device))
+        sc, pc = props.seed_then_probe(props.pid_session(cpu))
+        check(s1, s0, sc, f"P4 pid seed {seed} seed")
+        check(p1, p0, pc, f"P4 pid seed {seed} probe")
+        if p1.n_failed or s1.n_failed or p1.metrics.pid_pruned_parts:
+            raise AssertionError("P4 pid_pool: not stats-only pruning")
+        injected += sess.fault_injector.n_fired
+        # the soak's rates (window_close 0.02, every other point 0.05)
+        rates = {p: 0.05 for p in FAULT_POINTS}
+        rates["window_close"] = 0.02
+        faulty = props.res_session(device, config=props.res_cfg(
+            1 << 15, seed=seed, rates=rates))
+        clean = props.res_session(device, 1 << 15)
+        svc = QueryService(faulty, max_batch=64)
+        rng = random.Random(seed)
+        for w in range(P_SOAK_WINDOWS):
+            idxs = rng.choices(range(6), k=rng.randint(1, 3))
+            handles = [svc.submit(props.res_queries(faulty)[i])
+                       for i in idxs]
+            svc.flush()
+            base = clean.run_batch([props.res_queries(clean)[i]
+                                    for i in idxs])
+            for h, b in zip(handles, base.results):
+                if not h.done:
+                    raise AssertionError(f"P4 soak window {w}: unresolved")
+                if not h.failed:
+                    p_bitwise(h.result(), b.table, f"P4 soak window {w}")
+                    runs += 1
+            if faulty.memory.audit():
+                raise AssertionError(f"P4 soak window {w}: audit")
+            if w % 7 == 6:
+                faulty.memory._make_room(faulty.memory.device_budget)
+        injected += faulty.fault_injector.n_fired
+    if not injected:
+        raise AssertionError("P4: no fault was injected")
+    return dict(seeds=len(P_FAULT_SEEDS), successes=runs,
+                injected=injected, events=events)
+
+
+def p_pruned(device) -> dict:
+    """P5: pruned = unpruned.  ``test_partition.py``'s seeded predicate
+    trees (12 a cell) over range and hash partitioning, columnar and CSV,
+    with the pid pool on (its default), bitwise on the card and against
+    the port's CPU run; then ``TestPidPoolFault``'s seed-and-probe, whose
+    probe the pid pool prunes beyond the statistics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.relational import Partitioning
+    from repro_torch.relational.partition import prune_parts
+
+    props, cpu = p_props(), torch.device("cpu")
+    cases = pruned = 0
+    for fmt in ("columnar", "csv"):
+        for scheme in ("range", "hash"):
+            part = Partitioning("n1", scheme, 8)
+            on = props.part_session(device, fmt, part, prune=True)
+            off = props.part_session(device, fmt, part, prune=False)
+            ref = props.part_session(cpu, fmt, part, prune=True)
+            info = on.stats.partitions["t"]
+            rng = np.random.default_rng(0)
+            for i in range(12):
+                pred = props.random_pred_tree(rng)
+                a, b, c = (s.run_batch([props.pruned_query(s, pred)],
+                                       mqo=False).results[0].table
+                           for s in (on, off, ref))
+                label = f"P5 {fmt} {scheme} {i}"
+                p_bitwise(a, b, label)
+                compare_tables(a, c, f"{label} vs cpu")
+                pruned += info.n_partitions - len(prune_parts(pred, info))
+                cases += 1
+    s, p = props.seed_then_probe(props.pid_session(device))
+    sc, pc = props.seed_then_probe(props.pid_session(cpu))
+    for got, want, label in ((s, sc, "seed"), (p, pc, "probe")):
+        compare_tables(got.results[0].table, want.results[0].table,
+                       f"P5 pid {label} vs cpu")
+    pid = p.metrics.pid_pruned_parts
+    if not pruned or not pid:
+        raise AssertionError(f"P5: {pruned} partitions pruned by "
+                             f"statistics, {pid} by the pid pool")
+    return dict(cases=cases + 2, pruned_by_stats=pruned, pruned_by_pid=pid)
+
+
+def properties_phase(device, smi: str) -> dict:
+    """Phase P: P1-P5 on ``device``; one line an identity (cases,
+    counters, seconds); returns the phase's launches by kernel."""
+    from repro_torch.kernels.filter_project import kernel as K
+
+    before = dict(K.LAUNCHES)
+    for name, fn in (("P1 fused = eager, batched = per-query", p_fused),
+                     ("P2 tiny budget = unlimited", p_budgets),
+                     ("P3 MQO = no MQO", p_mqo),
+                     ("P4 faults = fault-free", p_faults),
+                     ("P5 pruned = unpruned", p_pruned)):
+        at = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn(device)
+        launched = {k: v for k, v in p_launches(K, at).items() if v}
+        log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in out.items())
+            + "; launches " + (", ".join(f"{k} {v}" for k, v in
+                                         launched.items()) or "none")
+            + f"; {time.perf_counter() - t0:.1f} s [{smi}]")
+        if device.type != "cuda":
+            continue
+        need = ("filter_scan", "filter_scan_batch", "parse_fields") \
+            if name.startswith("P1") else ()
+        if not launched or any(k not in launched for k in need):
+            raise AssertionError(f"{name}: a kernel was not launched: "
+                                 f"{launched}")
+    return p_launches(K, before)
+
+
 def attention_wrapper_timings(device, smi: str) -> None:
     """``--only timings``: the two attention wrappers of the checkout,
     CUDA-event median of 30 calls, at S2's batched decode (8 rows x 272
@@ -4657,7 +5081,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
                                        "timings", "surfaces", "benches",
-                                       "sharded", "dryrun"),
+                                       "sharded", "dryrun", "properties"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -4722,6 +5146,10 @@ def main(argv=None) -> int:
             cuda, smi))
     if args.only in (None, "surfaces"):
         surfaces = phase("surfaces", lambda: surfaces_phase(cuda, smi))
+    properties = None
+    if args.only in (None, "properties"):
+        properties = phase("properties", lambda: properties_phase(cuda,
+                                                                   smi))
     benches = None
     if args.only == "benches":
         benches = phase("benches", lambda: benches_phase(cuda, smi))
@@ -4736,9 +5164,10 @@ def main(argv=None) -> int:
     dryrun = None
     if args.only in (None, "dryrun"):
         dryrun = phase("dryrun", lambda: dryrun_phase(cuda, smi))
-    if args.only in ("sharded", "dryrun"):
+    if args.only in ("sharded", "dryrun", "properties"):
         # bring-up: the path's launches alone, no timings
-        counts = sharded if args.only == "sharded" else dryrun
+        counts = {"sharded": sharded, "dryrun": dryrun,
+                  "properties": properties}[args.only]
         kernels = [dict(name=name, route="cuda", source=src, replaces=line,
                         launches=counts.get(counted, 0), path=args.only,
                         launches_by_path={})
@@ -4752,8 +5181,8 @@ def main(argv=None) -> int:
                         launches_by_path={bench: b.get(counted, 0)
                                           for bench, b in benches.items()})
                    for name, src, line, counted in M_KERNELS]
-    for name, key in (("surfaces", surfaces), ("sharded", sharded),
-                      ("dryrun", dryrun)):
+    for name, key in (("surfaces", surfaces), ("properties", properties),
+                      ("sharded", sharded), ("dryrun", dryrun)):
         if key is None:
             continue
         # the surfaces' card runs and the sharded paths, beside the main

@@ -26,8 +26,9 @@ import torch
 from ..kernels.decode_attention.ops import decode
 from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
-from .common import (ParamSpec, apply_rope, reduce_row_parallel, rmsnorm,
-                     rmsnorm_spec, shard_range)
+from .common import (ParamSpec, _is_dtensor, apply_rope, grad_by_rows_only,
+                     reduce_row_parallel, rmsnorm, rmsnorm_spec,
+                     shard_range, with_grad)
 from .config import ArchConfig
 
 
@@ -64,6 +65,17 @@ def _whole_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
         x.redistribute(x.device_mesh, pls)
 
 
+def _merged_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``x`` (B, T, H * D), merged from heads, itself; its gradient is
+    made whole over a mesh dim that splits its last dim through heads
+    (:func:`_whole_heads`): the output projection, split by rows over
+    ``model``, hands back a gradient split along that dim, 40 heads over
+    16 ranks, which the merge's backward cannot view as heads."""
+    if not _is_dtensor(x):
+        return x
+    return with_grad(x, lambda g: _whole_heads(g, n_heads))
+
+
 def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
                 window: Optional[int], positions: torch.Tensor,
                 dtype) -> torch.Tensor:
@@ -75,7 +87,7 @@ def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     k = apply_rope(k, positions[None, None, :], cfg.rope_theta)
     out = attention(q, k, v, True, window, None, cfg.attn_impl)
     b, h, t, hd = out.shape
-    out = out.transpose(1, 2).reshape(b, t, h * hd)
+    out = _merged_heads(out.transpose(1, 2).reshape(b, t, h * hd), h)
     return reduce_row_parallel(out @ p["wo"])
 
 
@@ -193,7 +205,8 @@ def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 def _mla_q(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.q_lora_rank:
-        q = rmsnorm(p["q_norm"], x @ p["q_down"], cfg.norm_eps) @ p["q_up"]
+        q = rmsnorm(p["q_norm"], grad_by_rows_only(x @ p["q_down"]),
+                    cfg.norm_eps) @ p["q_up"]
     else:
         q = x @ p["q_up"]
     return _split_heads(q, cfg.n_heads)        # (B, H, T, nope + rope)
@@ -207,7 +220,7 @@ def mla_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     pos = positions[None, None, :]
     q = _mla_q(p, x, cfg)
     q_rope = apply_rope(q[..., nope:], pos, cfg.rope_theta)
-    ckv_full = x @ p["kv_down"]                        # (B, T, r + rope)
+    ckv_full = grad_by_rows_only(x @ p["kv_down"])     # (B, T, r + rope)
     ckv = rmsnorm(p["kv_norm"], ckv_full[..., :r], cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., r:][:, None], pos, cfg.rope_theta)
     k_nope = _split_heads(ckv @ p["k_up"], h)

@@ -282,6 +282,60 @@ def split_by_rows_only(x: torch.Tensor) -> torch.Tensor:
         x.redistribute(x.device_mesh, pls)
 
 
+def with_grad(x: torch.Tensor, fn) -> torch.Tensor:
+    """``x`` itself, whose gradient passes through ``fn`` on its way to
+    the operation that made ``x``."""
+    return _WithGrad.apply(x, fn)
+
+
+class _WithGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def rows_flattened(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` (rows * T, d), flattened from (rows, T, d), itself; where
+    DTensor hands its gradient back split along dim 0 over more ranks
+    than ``rows`` divides into, the gradient takes ``x``'s own
+    placements first.  The products and gathers that read a stream split
+    over ``pod`` and ``data`` give it a gradient also split over
+    ``model``, which the flattening's backward cannot view as rows: 256
+    rows do not split 512 ways.  A plain tensor as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    mesh, pls = x.device_mesh, tuple(x.placements)
+
+    def placed(g):
+        ranks = math.prod(mesh.size(i) for i, pl in enumerate(g.placements)
+                          if pl == Shard(0))
+        return g if rows % ranks == 0 else g.redistribute(mesh, pls)
+
+    return with_grad(x, placed)
+
+
+def grad_by_rows_only(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; under autograd, where DTensor ``x`` is split along
+    its rows by more than one mesh dim (``pod`` and ``data``), its
+    gradient is split by rows only (:func:`split_by_rows_only`) before
+    it reaches the product that made ``x``.  Normed and projected, that
+    gradient comes back split through the tokens over ``model`` too,
+    which the product's weight gradient flattens with the rows into a
+    split whose offsets DTensor reads from a tensor, and a fake tensor
+    cannot give them.  Elsewhere ``x`` as it is."""
+    if not (_is_dtensor(x) and torch.is_grad_enabled()
+            and _rows_over_several_dims(x)):
+        return x
+    return with_grad(x, split_by_rows_only)
+
+
 def _rows_over_several_dims(x) -> bool:
     """Whether DTensor ``x`` is split along its rows (the batch) by more
     than one mesh dim (``pod`` and ``data``)."""

@@ -26,7 +26,8 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _is_dtensor, reduce_row_parallel
+from .common import (ParamSpec, _is_dtensor, reduce_row_parallel,
+                     rows_flattened)
 from .config import ArchConfig
 
 
@@ -172,7 +173,7 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     b, t, d = x.shape
     s = b * t
     e, k = cfg.n_experts, cfg.top_k
-    xf = x.reshape(s, d)
+    xf = rows_flattened(x.reshape(s, d), b)
     r = route(cfg, xf @ p["router"])
     cap = r.capacity
     keep = r.keep[:, None].to(dtype)

@@ -21,29 +21,37 @@ REFERENCE_OPS = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                  "collective-permute"}
 
 
-def _port_cell(arch: str, shape: str) -> dict:
+def _start_cell(arch: str, shape: str, multi_pod: bool = False):
     code = f"""
         import json
         from repro_torch.launch.dryrun import run_cell
-        r = run_cell("{arch}", "{shape}", multi_pod=False, save=False)
+        r = run_cell("{arch}", "{shape}", multi_pod={multi_pod}, save=False)
         print("RESULT_JSON:" + json.dumps(r, default=str))
     """
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                         capture_output=True, text=True, env=env,
-                         timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    line = [ln for ln in out.stdout.splitlines()
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+
+def _finish_cell(proc, chips: int = 256) -> dict:
+    stdout, stderr = proc.communicate(timeout=600)
+    assert proc.returncode == 0, stderr[-3000:]
+    line = [ln for ln in stdout.splitlines()
             if ln.startswith("RESULT_JSON:")][0]
     r = json.loads(line[len("RESULT_JSON:"):])
     assert r["status"] == "ok", (r.get("error"), r.get("traceback"))
-    assert r["chips"] == 256
+    assert r["chips"] == chips
     assert r["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert set(r["collectives"]) <= REFERENCE_OPS
     assert r["collective_bytes_per_device"] == sum(r["collectives"].values())
     assert r["memory"]["peak_bytes_per_device_est"] > 0
     return r
+
+
+def _port_cell(arch: str, shape: str) -> dict:
+    return _finish_cell(_start_cell(arch, shape))
 
 
 def test_llama4_scout_decode_cell():
@@ -94,3 +102,38 @@ def test_deepseek_v2_prefill_cell():
                                                            + cfg.v_head_dim)
     assert attention < r["flops_per_device"] < 2 * attention
     assert r["tokens_per_step"] == 32 * 32768 and r["step_kind"] == "prefill"
+
+
+TRAIN_CELLS = ("llama4-scout-17b-a16e", "deepseek-v2-236b")
+
+
+@pytest.fixture(scope="module")
+def multi_pod_train_cells():
+    """``train_4k`` of both configurations on ``pod2x16x16``, each in a
+    process of its own, the two started together."""
+    procs = {a: _start_cell(a, "train_4k", multi_pod=True)
+             for a in TRAIN_CELLS}
+    return {a: _finish_cell(p, chips=512) for a, p in procs.items()}
+
+
+@pytest.mark.parametrize("arch", TRAIN_CELLS)
+def test_multi_pod_train_cell(multi_pod_train_cells, arch):
+    """The 256 rows of 4,096 tokens split 32 ways over ``pod`` and
+    ``data``: the routed experts' flattened tokens and (llama4-scout)
+    the merged heads, 40 over 16 ``model`` ranks, or (deepseek-v2) the
+    MLA down-projections get their gradients back placed as their
+    forward values were, so the backward views and products trace.  A
+    step's flops exceed 6 flops per active parameter and token (the
+    rank's share of the tokens) and stay within 8 times that: attention
+    (deepseek-v2's plain attention multiplies the whole 4,096-token
+    square over 128 heads of 320 dims, about twice the parameters'
+    flops), the recomputed blocks and the experts' slack capacity add
+    the rest."""
+    r = multi_pod_train_cells[arch]
+    assert r["step_kind"] == "train" and r["tokens_per_step"] == 256 * 4096
+    model = 6 * r["params_active"] * r["tokens_per_step"] / 512
+    assert model < r["flops_per_device"] < 8 * model
+    if arch == "llama4-scout-17b-a16e":
+        assert r["kernel_calls"] == {"flash_attention": 192}
+    else:
+        assert r["kernel_calls"] == {}

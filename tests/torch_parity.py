@@ -15,6 +15,9 @@ Parity contract:
     terms is at most about n * 6e-8; the TPC-DS groups here hold a few
     hundred rows).
 """
+import dataclasses
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -93,6 +96,21 @@ def run_both(catalog, fmt, jq, tq, passes=2):
         out.append((stream(js, jq(js), j_strict),
                     stream(ts, tq(ts), t_strict)))
     return out
+
+
+def to_reference(obj):
+    """A port plan, predicate or schema rebuilt as the JAX package's:
+    each of the port's dataclasses becomes the class of the same name in
+    the JAX package's module of the same path, field by field."""
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_reference(o) for o in obj)
+    mod = type(obj).__module__
+    if dataclasses.is_dataclass(obj) and mod.startswith("repro_torch."):
+        cls = getattr(importlib.import_module(
+            "repro." + mod[len("repro_torch."):]), type(obj).__name__)
+        return cls(**{f.name: to_reference(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj) if f.init})
+    return obj
 
 
 @pytest.fixture(scope="module")
