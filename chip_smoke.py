@@ -81,7 +81,8 @@ process per source, all at once) and drives both of the port's paths:
   2 SPMD ranks (a card each over NCCL, else both on ``cuda:0`` over
   gloo): granite-8b's tensor-parallel train step against the single-
   device step, with a control that leaves out the row-parallel
-  all-reduce, and gemma3-1b's bf16-compressed step, its update held
+  all-reduce, and a second (warm) step timed beside the single-device
+  one's, and gemma3-1b's bf16-compressed step, its update held
   against the uncompressed f32 step's (M2),
   llama4-scout's MoE FFN expert-parallel against ``moe_forward`` (M3),
   and the TP masters saved and restored onto a world of 1, bitwise
@@ -114,7 +115,9 @@ one's can be timed in turns on one card; ``--only serving|families|
 training --tree DIR`` runs S2, S3 or T0-T2 on that checkout's port
 (without S1), whose generations' digests and T1 / T2 figures the same
 phases of this checkout must equal where the single-device path is
-unchanged.  It prints one
+unchanged; ``--only spmd`` runs M2-M5 alone (no M1), and with ``--tree
+DIR`` on that checkout's port, so that two commits' TP steps can be
+timed in turns on one card.  It prints one
 line per phase and each phase's seconds.  The line before the last is
 the kernels' JSON; where phase D ran, the line before it is the scan
 operators' JSON (D4; they are not kernels); the last line is the device
@@ -3984,6 +3987,11 @@ def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
             c.full_tensor() if hasattr(c, "full_tensor") else c)
     finally:
         Partial._reduce_value = real_reduce
+    # a second step, warm, timed only
+    t0 = time.perf_counter()
+    params, opt, _ = step(params, opt, batch)
+    m_sync(dev)
+    out["m2"]["warm_seconds"] = time.perf_counter() - t0
     del opt, batch, step, metrics
     # M4's save: rank 0 writes the gathered masters; each rank's local
     # blocks are digested for the restore world to check
@@ -4226,12 +4234,17 @@ def m_spmd(cuda, smi: str) -> dict:
     FK.reset_launches()
     m_sync(cuda)
     t0 = time.perf_counter()
-    _, _, ref = make_train_step(cfg, OptConfig())(
-        masters, init_train_state(cfg, masters), batch)
+    ref_step, state = make_train_step(cfg, OptConfig()), \
+        init_train_state(cfg, masters)
+    masters, state, ref = ref_step(masters, state, batch)
     ref_loss, ref_gnorm = float(ref["loss"]), float(ref["grad_norm"])
     m_sync(cuda)
     ref_s = time.perf_counter() - t0
-    del masters, batch, ref
+    t0 = time.perf_counter()
+    ref_step(masters, state, batch)
+    m_sync(cuda)
+    ref_warm = time.perf_counter() - t0
+    del masters, batch, ref, state
     gc.collect()
     torch.cuda.empty_cache()
     mcfg, p, x = m_moe_inputs(cuda)
@@ -4263,7 +4276,9 @@ def m_spmd(cuda, smi: str) -> dict:
                 f"({ref_gnorm:.6g}); limits {M_LOSS_RTOL} / {M_GNORM_RTOL} "
                 f"relative; control without the row-parallel all-reduce: "
                 f"loss {o['control_loss']:.6f}; step {o['seconds']:.2f} s "
-                f"(single device {ref_s:.2f} s), masters held "
+                f"(single device {ref_s:.2f} s), warm step "
+                f"{o['warm_seconds']:.2f} s (single device {ref_warm:.2f} "
+                f"s), masters held "
                 f"{o['held'] / 1e9:.2f} GB, peak "
                 f"{o['peak'] / 1e9:.2f} GB; flash_attention launched "
                 f"{o['flash']} times [{smi}]")
@@ -5081,7 +5096,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
                                        "timings", "surfaces", "benches",
-                                       "sharded", "dryrun", "properties"),
+                                       "sharded", "spmd", "dryrun",
+                                       "properties"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="with --only timings: time the kernels of the "
@@ -5090,8 +5106,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     if tree != ROOT and args.only not in ("timings", "serving", "families",
-                                          "training"):
-        ap.error("--tree needs --only timings|serving|families|training")
+                                          "training", "spmd"):
+        ap.error("--tree needs --only timings|serving|families|training|"
+                 "spmd")
     # pins cuBLAS's workspace so that deterministic algorithms are
     # available to the serving phase; read when CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5161,12 +5178,14 @@ def main(argv=None) -> int:
     sharded = None
     if args.only in (None, "sharded"):
         sharded = phase("sharded", lambda: sharded_phase(cuda, smi))
+    if args.only == "spmd":
+        sharded = phase("spmd", lambda: m_spmd(cuda, smi))
     dryrun = None
     if args.only in (None, "dryrun"):
         dryrun = phase("dryrun", lambda: dryrun_phase(cuda, smi))
-    if args.only in ("sharded", "dryrun", "properties"):
+    if args.only in ("sharded", "spmd", "dryrun", "properties"):
         # bring-up: the path's launches alone, no timings
-        counts = {"sharded": sharded, "dryrun": dryrun,
+        counts = {"sharded": sharded, "spmd": sharded, "dryrun": dryrun,
                   "properties": properties}[args.only]
         kernels = [dict(name=name, route="cuda", source=src, replaces=line,
                         launches=counts.get(counted, 0), path=args.only,

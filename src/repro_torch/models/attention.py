@@ -26,9 +26,9 @@ import torch
 from ..kernels.decode_attention.ops import decode
 from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
-from .common import (ParamSpec, _is_dtensor, apply_rope, grad_by_rows_only,
-                     reduce_row_parallel, rmsnorm, rmsnorm_spec,
-                     shard_range, with_grad)
+from .common import (ParamSpec, apply_rope, copy_to_model,
+                     reduce_from_model, rmsnorm, rmsnorm_spec, row_parallel,
+                     shard_range)
 from .config import ArchConfig
 
 
@@ -65,17 +65,6 @@ def _whole_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
         x.redistribute(x.device_mesh, pls)
 
 
-def _merged_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """``x`` (B, T, H * D), merged from heads, itself; its gradient is
-    made whole over a mesh dim that splits its last dim through heads
-    (:func:`_whole_heads`): the output projection, split by rows over
-    ``model``, hands back a gradient split along that dim, 40 heads over
-    16 ranks, which the merge's backward cannot view as heads."""
-    if not _is_dtensor(x):
-        return x
-    return with_grad(x, lambda g: _whole_heads(g, n_heads))
-
-
 def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
                 window: Optional[int], positions: torch.Tensor,
                 dtype) -> torch.Tensor:
@@ -87,8 +76,7 @@ def gqa_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     k = apply_rope(k, positions[None, None, :], cfg.rope_theta)
     out = attention(q, k, v, True, window, None, cfg.attn_impl)
     b, h, t, hd = out.shape
-    out = _merged_heads(out.transpose(1, 2).reshape(b, t, h * hd), h)
-    return reduce_row_parallel(out @ p["wo"])
+    return row_parallel(out.transpose(1, 2).reshape(b, t, h * hd), p["wo"])
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -175,7 +163,7 @@ def gqa_decode(p, x: torch.Tensor, cache: Dict, write_idx: int,
                         device=x.device)
     out = decode(q, cache["k"], cache["v"], kv_len, window=window,
                  impl=cfg.attn_impl)
-    return reduce_row_parallel(out.reshape(b, 1, -1) @ p["wo"]), cache
+    return reduce_from_model(out.reshape(b, 1, -1) @ p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +193,8 @@ def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 def _mla_q(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.q_lora_rank:
-        q = rmsnorm(p["q_norm"], grad_by_rows_only(x @ p["q_down"]),
+        # the latent feeds the heads' column-parallel up-projection
+        q = rmsnorm(p["q_norm"], copy_to_model(x @ p["q_down"]),
                     cfg.norm_eps) @ p["q_up"]
     else:
         q = x @ p["q_up"]
@@ -220,7 +209,9 @@ def mla_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     pos = positions[None, None, :]
     q = _mla_q(p, x, cfg)
     q_rope = apply_rope(q[..., nope:], pos, cfg.rope_theta)
-    ckv_full = grad_by_rows_only(x @ p["kv_down"])     # (B, T, r + rope)
+    # the latent feeds the heads' column-parallel up-projections and,
+    # through its rope part, every head's keys
+    ckv_full = copy_to_model(x @ p["kv_down"])          # (B, T, r + rope)
     ckv = rmsnorm(p["kv_norm"], ckv_full[..., :r], cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., r:][:, None], pos, cfg.rope_theta)
     k_nope = _split_heads(ckv @ p["k_up"], h)
@@ -229,8 +220,7 @@ def mla_forward(p, x: torch.Tensor, cfg: ArchConfig, *,
     q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
     out = _mha_local(q_full, k, v, causal=True,
                      sm_scale=1.0 / ((nope + rope) ** 0.5))
-    return reduce_row_parallel(
-        out.transpose(1, 2).reshape(b, t, h * vd) @ p["wo"])
+    return row_parallel(out.transpose(1, 2).reshape(b, t, h * vd), p["wo"])
 
 
 def _mha_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw

@@ -15,7 +15,10 @@ these storage dtypes at every step (``model.cast_params``).
 
 Under :func:`activation_sharding` (a context variable, as in the JAX
 package) :func:`constrain` redistributes DTensor activations of an SPMD
-rank to the placements the mesh's logical axes name.
+rank to the placements the mesh's logical axes name.  On such a rank
+:func:`copy_to_model` and :func:`reduce_from_model` (tensor
+parallelism's pair of autograd regions) keep the residual stream split
+by rows only, in the forward and the backward.
 """
 from __future__ import annotations
 
@@ -211,23 +214,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean CE over (B, T, V) logits and (B, T) int labels, f32 math."""
     lf = logits.float()
     if _is_dtensor(lf):
-        # vocab-sharded logits (vocab parallelism): the max, the sum of
-        # exponentials and the gold logit (a masked sum, exact: one
-        # nonzero term) each reduce over the vocab slices with one
-        # all-reduce, and the logits are never gathered
-        top = lf.detach().amax(dim=-1, keepdim=True)
-        total = torch.exp(lf - top).sum(-1)
-        if _rows_over_several_dims(total):
-            # summed whole at once: left partial, DTensor reduce-scatters
-            # it over the tokens, the logits' gradient comes back split
-            # over the tokens, and the unembedding's gradient flattens
-            # (B, T) into a token split whose offsets DTensor reads from
-            # a tensor, which a fake tensor cannot give
-            total = reduce_partial(total)
-        lse = torch.log(total) + top[..., 0]
-        vocab = torch.arange(lf.shape[-1], device=labels.device)
-        hit = (vocab == labels.long()[..., None]).to(lf.dtype)
-        gold = (lf * hit).sum(-1)
+        lse, gold = _vocab_parallel_terms(lf, labels)
     else:
         lse = torch.logsumexp(lf, dim=-1)
         gold = lf.gather(-1, labels.long()[..., None])[..., 0]
@@ -236,6 +223,30 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _vocab_parallel_terms(lf, labels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log-sum-exp, gold logit) of DTensor f32 logits (B, T, V), read
+    where they lie (vocab parallelism): each rank takes the max, the sum
+    of exponentials and the gold logit (a masked sum, exact: one nonzero
+    term) of its own vocab slice, and each (B, T) term is summed over
+    the slices (:func:`reduce_from_model`); no rank holds the logits of
+    the whole vocab, or a one-hot of it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, last = lf.device_mesh, lf.ndim - 1
+    top = _placed(lf.detach().amax(dim=-1, keepdim=True), mesh,
+                  _rows_only(lf))
+    total = reduce_from_model(torch.exp(lf - top).sum(-1))
+    begin, n = shard_range(lf, last)
+    ids = torch.arange(begin, begin + n, device=labels.device)
+    vocab = DTensor.from_local(
+        ids, mesh, [Shard(0) if pl == Shard(last) else Replicate()
+                    for pl in lf.placements],
+        run_check=False, shape=(lf.shape[last],), stride=(1,))
+    hit = (vocab == labels.long()[..., None]).to(lf.dtype)
+    gold = reduce_from_model((lf * hit).sum(-1))
+    return torch.log(total) + top[..., 0], gold
 
 
 def shard_activation(x: torch.Tensor, spec, enabled: bool) -> torch.Tensor:
@@ -254,121 +265,112 @@ def shard_activation(x: torch.Tensor, spec, enabled: bool) -> torch.Tensor:
                           placements(NamedSharding(mesh, tuple(spec))))
 
 
-def reduce_partial(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor holding partial sums (an embedding lookup in a
-    vocab-split table, a row-parallel product) summed over those mesh
-    dims now; anything else as it is."""
-    if not _is_dtensor(x):
-        return x
-    from torch.distributed.tensor import Partial, Replicate
-
-    pls = [Replicate() if isinstance(pl, Partial) else pl
-           for pl in x.placements]
-    return x if pls == list(x.placements) else \
-        x.redistribute(x.device_mesh, pls)
-
-
-def split_by_rows_only(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor (B, ...) kept split along its rows (the batch) only:
-    every other placement (a partial sum, a split of the tokens or of
-    the features) made whole, as a tensor-parallel block takes its
-    input; anything else as it is."""
-    if not _is_dtensor(x):
-        return x
+# ---------------------------------------------------------------------------
+# tensor parallelism under autograd (Megatron's pair of regions)
+# ---------------------------------------------------------------------------
+# On an SPMD rank the residual stream (B, T, d) is split along its rows
+# over the batch's mesh dims and whole over every other dim, in the
+# forward and in the backward.  A column-parallel product (a weight
+# whose columns a mesh dim splits) reads it through copy_to_model; a
+# row-parallel product's partial sums join it through reduce_from_model.
+# Each sets its gradient's placements itself, so DTensor never picks
+# them: a gradient left partial, or split along the tokens or features,
+# makes DTensor gather weights and multiply whole products on every
+# rank, and split the tokens in ways it cannot then view as rows.
+def _rows_only(x) -> list:
+    """DTensor ``x``'s placements with its rows' split (``Shard(0)``)
+    kept and every other placement (a partial sum, a split of the tokens
+    or of the features) made whole."""
     from torch.distributed.tensor import Replicate, Shard
 
-    pls = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
-    return x if pls == list(x.placements) else \
-        x.redistribute(x.device_mesh, pls)
+    return [pl if pl == Shard(0) else Replicate() for pl in x.placements]
 
 
-def with_grad(x: torch.Tensor, fn) -> torch.Tensor:
-    """``x`` itself, whose gradient passes through ``fn`` on its way to
-    the operation that made ``x``."""
-    return _WithGrad.apply(x, fn)
+def _placed(x, mesh, pls) -> torch.Tensor:
+    """DTensor ``x`` redistributed to ``pls``; ``x`` itself where it is
+    placed so already."""
+    pls = tuple(pls)
+    return x if tuple(x.placements) == pls else x.redistribute(mesh, pls)
 
 
-class _WithGrad(torch.autograd.Function):
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: ``x`` whole but for its rows (partial sums summed over
+    the mesh dims that split a contraction: an all-reduce).  Backward:
+    the gradient handed on as it is, whole but for its rows: the
+    gradient of each rank's partial term is the whole gradient."""
+
     @staticmethod
-    def forward(ctx, x, fn):
-        ctx.fn = fn
+    def forward(ctx, x):
+        ctx.mesh, ctx.pls = x.device_mesh, _rows_only(x)
+        out = _placed(x, ctx.mesh, ctx.pls)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _placed(g, ctx.mesh, ctx.pls)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: ``x`` itself, which every rank of a mesh dim reads for
+    its own slice of a column-parallel product.  Backward: the
+    gradient's partial sums over those ranks summed (an all-reduce), so
+    that it is placed as ``x`` was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.pls = x.device_mesh, tuple(x.placements)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.fn(g), None
+        return _placed(g, ctx.mesh, ctx.pls)
 
 
-def rows_flattened(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """``x`` (rows * T, d), flattened from (rows, T, d), itself; where
-    DTensor hands its gradient back split along dim 0 over more ranks
-    than ``rows`` divides into, the gradient takes ``x``'s own
-    placements first.  The products and gathers that read a stream split
-    over ``pod`` and ``data`` give it a gradient also split over
-    ``model``, which the flattening's backward cannot view as rows: 256
-    rows do not split 512 ways.  A plain tensor as it is."""
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor (the output of a row-parallel product, an embedding
+    lookup in a vocab-split table, a term of the vocab-parallel loss)
+    made whole but for its rows: its partial sums summed, as tensor
+    parallelism all-reduces after such a layer.  Anything else as it
+    is."""
     if not _is_dtensor(x):
         return x
-    from torch.distributed.tensor import Shard
-
-    mesh, pls = x.device_mesh, tuple(x.placements)
-
-    def placed(g):
-        ranks = math.prod(mesh.size(i) for i, pl in enumerate(g.placements)
-                          if pl == Shard(0))
-        return g if rows % ranks == 0 else g.redistribute(mesh, pls)
-
-    return with_grad(x, placed)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x)
+    return _placed(x, x.device_mesh, _rows_only(x))
 
 
-def grad_by_rows_only(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself; under autograd, where DTensor ``x`` is split along
-    its rows by more than one mesh dim (``pod`` and ``data``), its
-    gradient is split by rows only (:func:`split_by_rows_only`) before
-    it reaches the product that made ``x``.  Normed and projected, that
-    gradient comes back split through the tokens over ``model`` too,
-    which the product's weight gradient flattens with the rows into a
-    split whose offsets DTensor reads from a tensor, and a fake tensor
-    cannot give them.  Elsewhere ``x`` as it is."""
-    if not (_is_dtensor(x) and torch.is_grad_enabled()
-            and _rows_over_several_dims(x)):
-        return x
-    return with_grad(x, split_by_rows_only)
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, the input of column-parallel products; under autograd a
+    DTensor's gradient is summed over the ranks that split those
+    products and placed as ``x`` is.  Anything else as it is."""
+    if _is_dtensor(x) and torch.is_grad_enabled() and x.requires_grad:
+        return _CopyToModel.apply(x)
+    return x
 
 
-def _rows_over_several_dims(x) -> bool:
-    """Whether DTensor ``x`` is split along its rows (the batch) by more
-    than one mesh dim (``pod`` and ``data``)."""
-    from torch.distributed.tensor import Shard
+def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a weight whose rows (the contraction) a mesh dim
+    splits: attention's and the dense FFN's output projections, MLA's,
+    Mamba's ``x_proj`` and ``out_proj``, RG-LRU's ``out``; reduced
+    (:func:`reduce_from_model`).  On DTensors ``h`` is first split along
+    its last dim as ``w``'s rows are (a slice of what a rank holds),
+    through an autograd redistribute, so that its gradient comes back
+    placed as ``h`` was (llama4-scout's 40 heads do not split 16 ways,
+    and the merged heads' gradient could not be viewed as heads)."""
+    if _is_dtensor(h):
+        from torch.distributed.tensor import Shard
 
-    return sum(pl == Shard(0) for pl in x.placements) > 1
+        h = _placed(h, h.device_mesh,
+                    [Shard(h.ndim - 1) if wp == Shard(0) else hp
+                     for hp, wp in zip(h.placements, w.placements)])
+    return reduce_from_model(h @ w)
 
 
 def settle_residual(x: torch.Tensor) -> torch.Tensor:
-    """The residual stream between blocks.  Under autograd, on a mesh
-    that splits the batch over more than one dim (``pod`` and ``data``),
-    a DTensor stream is made whole but for its rows
-    (:func:`split_by_rows_only`): the blocks leave it a partial sum under
-    autograd (:func:`reduce_row_parallel`), DTensor then sums it into a
-    split of the tokens, a later product flattens that with the rows
-    into a split whose offsets DTensor reads from a tensor, and a fake
-    tensor cannot give them.  Elsewhere ``x`` as it is."""
-    if not (_is_dtensor(x) and torch.is_grad_enabled()
-            and _rows_over_several_dims(x)):
-        return x
-    return split_by_rows_only(x)
-
-
-def reduce_row_parallel(x: torch.Tensor) -> torch.Tensor:
-    """The output of a row-parallel product (attention's and the dense
-    FFN's output projections), summed at once when no gradient is
-    recorded (prefill and decode), as tensor parallelism all-reduces
-    after such a layer: left partial, it reaches the residual stream and
-    the norms, where DTensor picks its own reductions and, at 32K-token
-    prompts, splits the tokens in a way it then cannot multiply on fake
-    tensors.  Under autograd it stays partial: the backward of the eager
-    sum hands the head merge a gradient split through heads."""
-    return x if torch.is_grad_enabled() else reduce_partial(x)
+    """The residual stream between blocks, on a DTensor rank: whole but
+    for its rows, and its gradient too (:func:`reduce_from_model`),
+    in training as in prefill and decode."""
+    return reduce_from_model(x)
 
 
 def replica_plan(n_kv: int, group: int, n: int) -> Optional[Tuple[int, int,

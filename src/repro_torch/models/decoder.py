@@ -25,7 +25,7 @@ from . import attention as A
 from . import ffn as F
 from . import rglru as R
 from . import ssm as S
-from .common import rmsnorm, rmsnorm_spec, settle_residual
+from .common import copy_to_model, rmsnorm, rmsnorm_spec, settle_residual
 from .config import ArchConfig
 
 
@@ -103,7 +103,7 @@ def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
                   ffn_kind: str, positions: torch.Tensor, dtype
                   ) -> torch.Tensor:
     x = settle_residual(x)
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    h = copy_to_model(rmsnorm(p["norm1"], x, cfg.norm_eps))
     if kind in ("attn", "local"):
         h = A.gqa_forward(p["mix"], h, cfg, window=_window(cfg, kind),
                           positions=positions, dtype=dtype)
@@ -115,7 +115,7 @@ def block_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
     elif kind == "rglru":
         h = R.rglru_forward(p["mix"], h, cfg, dtype)
     x = settle_residual(x + h)
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    h = copy_to_model(rmsnorm(p["norm2"], x, cfg.norm_eps))
     return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype)
 
 

@@ -26,8 +26,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import (ParamSpec, _is_dtensor, reduce_row_parallel,
-                     rows_flattened)
+from .common import ParamSpec, _is_dtensor, copy_to_model, row_parallel
 from .config import ArchConfig
 
 
@@ -63,7 +62,7 @@ def dense_specs(cfg: ArchConfig, d_ff: int | None = None
 
 def dense_forward(p, x: torch.Tensor, dtype) -> torch.Tensor:
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
-    return reduce_row_parallel(h @ p["w2"])
+    return row_parallel(h, p["w2"])
 
 
 def moe_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -173,7 +172,10 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     b, t, d = x.shape
     s = b * t
     e, k = cfg.n_experts, cfg.top_k
-    xf = rows_flattened(x.reshape(s, d), b)
+    # the flattened tokens feed the experts' products; their gradient is
+    # placed as they are, split along the tokens as the rows were (256
+    # rows do not split over a 512-rank flattening)
+    xf = copy_to_model(x.reshape(s, d))
     r = route(cfg, xf @ p["router"])
     cap = r.capacity
     keep = r.keep[:, None].to(dtype)

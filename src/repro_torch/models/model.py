@@ -17,9 +17,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .common import (ParamSpec, ParamTree, _is_dtensor, constrain,
-                     cross_entropy, materialize_params, reduce_partial,
-                     rmsnorm, rmsnorm_spec, settle_residual, shard_range,
-                     storage_dtype)
+                     copy_to_model, cross_entropy, materialize_params,
+                     reduce_from_model, rmsnorm, rmsnorm_spec,
+                     settle_residual, shard_range, storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -121,12 +121,16 @@ def _vocab_parallel_lookup(table, tokens):
     mine = (ids >= 0) & (ids < rows)
     out = local[torch.where(mine, ids, 0)] * mine[..., None].to(local.dtype)
     pls = [Partial() if i in vocab else pl for i, pl in enumerate(kp)]
-    return reduce_partial(DTensor.from_local(out, mesh, pls,
-                                             run_check=False))
+    return reduce_from_model(DTensor.from_local(out, mesh, pls,
+                                                run_check=False))
 
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    """Logits (B, T, V).  On DTensors the head is a column-parallel
+    product: the normed stream meets the table (or the unembedding)
+    where it lies, split by vocab, and the logits stay split by vocab
+    (the vocab-parallel :func:`~.common.cross_entropy` reads them so)."""
+    x = copy_to_model(rmsnorm(params["final_norm"], x, cfg.norm_eps))
     if cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:

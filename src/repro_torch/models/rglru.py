@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, reduce_partial, split_by_rows_only
+from .common import ParamSpec, row_parallel
 from .config import ArchConfig
 from .scan_ops import rglru_scan
 from .ssm import _causal_conv
@@ -73,19 +73,12 @@ def _scatter_channels(t: torch.Tensor) -> torch.Tensor:
 
 def rglru_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                   ) -> torch.Tensor:
-    # on DTensors the block reads the residual stream whole but for its
-    # rows (the attention and FFN blocks leave it partial under
-    # autograd, and DTensor sums it into a split of the tokens), so that
-    # its products, the convolution and the scan split the channels
-    x = split_by_rows_only(x)
     xb = x @ p["in_x"]                                 # (B, T, w)
     gate = _gelu(x @ p["in_gate"])
     xc = _causal_conv(xb, p["conv_w"], p["conv_b"])
     i_t, a_t, beta = _gates(p, xc, dtype, _scatter_channels)
     gx = beta * (i_t * xc)
-    # a row-parallel product on DTensors: summed now, so that the
-    # residual stream and the next norm are whole
-    return reduce_partial((rglru_scan(a_t, gx) * gate) @ p["out"])
+    return row_parallel(rglru_scan(a_t, gx) * gate, p["out"])
 
 
 def rglru_init_cache(cfg: ArchConfig, batch: int, dtype, device=None

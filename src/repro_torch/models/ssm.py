@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, reduce_partial
+from .common import ParamSpec, copy_to_model, row_parallel
 from .config import ArchConfig
 from .scan_ops import on_local_shards, ssm_scan
 
@@ -102,13 +102,13 @@ def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     x_in = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"]))
     # a row-parallel product on DTensors, (B, T, dt_rank + 2 st): summed
     # now, so that dt_proj multiplies each rank's columns only and the
-    # scan reads Bm and Cm whole
-    dt, Bm, Cm = _split_proj(reduce_partial(x_in @ p["x_proj"]), cfg)
+    # scan reads Bm and Cm whole; their gradients, partial over the
+    # channels' ranks, are summed back here
+    dt, Bm, Cm = _split_proj(copy_to_model(row_parallel(x_in, p["x_proj"])),
+                             cfg)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     y = ssm_scan(dt, Bm, Cm, x_in, _a_matrix(p, dtype), p["D"].to(dtype))
-    # a row-parallel product on DTensors: summed now, so that the next
-    # block's norm and in-projection read a whole residual stream
-    return reduce_partial((y * F.silu(z)) @ p["out_proj"])
+    return row_parallel(y * F.silu(z), p["out_proj"])
 
 
 def mamba_init_cache(cfg: ArchConfig, batch: int, dtype, device=None

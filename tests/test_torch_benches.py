@@ -510,12 +510,19 @@ def test_runner_modules_are_the_ports_of_the_jax_runners():
 
 
 def test_runner_merges_a_run(tmp_path):
+    """The runner runs a bench and merges its result: the MCKP overhead
+    bench at its full size, which has no speed gate.  The resilience
+    bench's faulted / fault-free throughput gate (0.8) read 0.66-0.67
+    here beside other test processes, on one intra-op thread too, with
+    one fault fired; its rows and audit stay checked by
+    ``test_resilience`` and its gate on the card (``chip_smoke.py --only
+    benches``)."""
     out = tmp_path / "merged.json"
-    assert torch_run.main(["torch_bench_resilience", "--device", "cpu",
+    assert torch_run.main(["torch_bench_mckp", "--device", "cpu",
                            "--out", str(out)]) == 0
     merged = json.loads(out.read_text())
-    assert list(merged) == ["torch_resilience"]
-    assert merged["torch_resilience"]["device"] == "cpu"
+    assert list(merged) == ["torch_mckp_overhead"]
+    assert merged["torch_mckp_overhead"]["device"] == "cpu"
 
 
 def test_runner_fails_a_bench_without_a_result(monkeypatch, capsys):

@@ -112,10 +112,10 @@ class TestDryRunCells:
         """gemma3-1b ``train_4k``: the backward runs through the flash
         Function's recompute (the plain attention) under fake tensors;
         with block remat the layers of the pattern repeats run their
-        forward twice, one row a rank (the batch over both mesh dims),
-        one kernel call each time; the remainder layers run once, their
-        rows over ``data`` only, where the 16 model ranks share the one
-        kv head and attend 2 query chunks each (c = 4: 2 calls)."""
+        forward twice, the remainder layers once.  Every layer's rows
+        are split over ``data`` only (the residual stream is whole over
+        ``model``), so the 16 model ranks share the one kv head and
+        attend 2 query chunks each (c = 4: 2 calls a forward)."""
         from repro_torch.configs import get_config
 
         cfg = get_config("gemma3-1b")
@@ -124,8 +124,8 @@ class TestDryRunCells:
         assert r["chips"] == 256 and r["step_kind"] == "train"
         assert cfg.remat == "block" and cfg.remainder_layers > 0
         assert r["kernel_calls"] == {
-            "flash_attention": 2 * cfg.full_repeats * len(cfg.pattern)
-            + 2 * cfg.remainder_layers}
+            "flash_attention": 2 * (2 * cfg.full_repeats * len(cfg.pattern)
+                                    + cfg.remainder_layers)}
         assert r["collectives"]["all-reduce"] > 0
         # the backward's work: more than the forward's 2 N D a device
         assert r["roofline"]["useful_flops_ratio"] > 0.1

@@ -1,0 +1,102 @@
+"""The tensor-parallel train step's autograd pair (``models/common.py``:
+``copy_to_model`` at the input of column-parallel products,
+``reduce_from_model`` after row-parallel ones) in spawned gloo worlds of
+CPU ranks, against the port's single-device step.
+
+Two worlds, each started by ``repro_torch.launch.mesh.spawn`` with
+``torch_spmd_workers.tp_pair``: 2 ranks over ("model",), as phase M's
+M2 splits granite-8b on the card, and 2 x 2 over ("data", "model").  In
+each, five ``-smoke`` configs (dense GQA, GQA over one kv head, Mamba,
+RG-LRU with local attention, MLA with the routed MoE) take one loss and
+gradient on masters and a batch placed by the sharding rules.  The
+limits are M2's: the loss within 2e-4 of the single-device loss
+(relative), the gradient norm within 1e-3 (relative); each gradient
+leaf is held within 1e-3 of its own largest entry.  No all-reduce of
+the step is as large as a rank's vocab share of the f32 logits, over
+("model",): the logits stay split by vocab, and the stream's
+all-reduces move (rows, T, d_model).
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_spmd_workers as W  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh, spawn  # noqa: E402
+from repro_torch.models.common import named_leaves  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.train.train_step import value_and_grad  # noqa: E402
+
+# phase M's M2 limits (chip_smoke.M_LOSS_RTOL, M_GNORM_RTOL)
+LOSS_RTOL, GNORM_RTOL = 2e-4, 1e-3
+pytestmark = pytest.mark.timeout(300)
+
+WORLDS = {"model2": ((2,), ("model",)),
+          "data2_model2": ((2, 2), ("data", "model"))}
+
+
+@pytest.fixture(scope="module", params=sorted(WORLDS))
+def world(request):
+    shape, axes = WORLDS[request.param]
+    mesh = make_test_mesh(shape, axes,
+                          devices=["cpu"] * int(np.prod(shape)))
+    return request.param, spawn(W.tp_pair, mesh)
+
+
+@pytest.fixture(scope="module")
+def single_device():
+    out = {}
+    for arch in W.PAIR_ARCHS:
+        cfg = get_config(arch)
+        params = init_params(cfg, 0, device="cpu", masters=True)
+        batch = {k: torch.from_numpy(v) for k, v in
+                 W.train_batch(cfg, W.PAIR_B, W.PAIR_T).items()}
+        loss, grads = value_and_grad(params, batch, cfg)
+        out[arch] = (float(loss), {k: v.detach().numpy()
+                                   for k, v in named_leaves(grads)})
+    return out
+
+
+def _norm(grads) -> float:
+    return math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                         for g in grads.values()))
+
+
+@pytest.mark.parametrize("arch", W.PAIR_ARCHS)
+def test_tp_step_matches_the_single_device_step(world, single_device, arch):
+    name, ranks = world
+    want_loss, want = single_device[arch]
+    for rank, out in enumerate(ranks):
+        got = out[arch]
+        assert abs(got["loss"] - want_loss) <= LOSS_RTOL * want_loss, \
+            (name, rank)
+        assert abs(_norm(got["grads"]) - _norm(want)) <= \
+            GNORM_RTOL * _norm(want), (name, rank)
+        assert sorted(got["grads"]) == sorted(want)
+        for key, g in got["grads"].items():
+            scale = float(np.abs(want[key]).max())
+            np.testing.assert_allclose(g, want[key], rtol=0,
+                                       atol=GNORM_RTOL * scale,
+                                       err_msg=f"{name} rank {rank} {key}")
+
+
+@pytest.mark.parametrize("arch", W.PAIR_ARCHS)
+def test_the_pair_carries_the_step(world, arch):
+    """Both backwards of the pair run in every step.  Over ("model",)
+    alone, where no weight's gradient is summed over a data dim, the
+    largest all-reduce is below a rank's vocab share of f32 logits
+    (rows x T x V / 2 x 4 bytes): no rank sums the logits of the whole
+    vocab (rows x T x V x 4)."""
+    name, ranks = world
+    vocab_share = W.PAIR_B * W.PAIR_T * get_config(arch).vocab_size // 2 * 4
+    for out in ranks:
+        got = out[arch]
+        assert got["calls"]["copy_to_model"] > 0
+        assert got["calls"]["reduce_from_model"] > 0
+        sizes = [n for op, n in got["collectives"] if op == "all_reduce"]
+        assert sizes
+        if name == "model2":
+            assert max(sizes) < vocab_share, max(sizes)

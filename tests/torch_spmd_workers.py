@@ -397,3 +397,87 @@ def scan_blocks(rank, mesh):
             "want_grads": {k: _host(v) for k, v in named_leaves(grads)},
             "calls": dict(scan_ops.CALLS), "placements": placed}
     return out
+
+
+# the block kinds whose tensor-parallel products the autograd pair of
+# ``models/common.py`` (copy_to_model / reduce_from_model) carries: dense
+# GQA, GQA over one kv head, Mamba, RG-LRU with local attention, and MLA
+# with the routed and shared MoE.  One MoE config a process: DTensor's
+# sharding cache keys ``topk`` without its k (torch 2.13), so a second
+# config of another top_k would read the first one's output shape
+# (ROADMAP C7)
+PAIR_ARCHS = ("granite-8b-smoke", "gemma3-1b-smoke", "falcon-mamba-7b-smoke",
+              "recurrentgemma-9b-smoke", "deepseek-v2-236b-smoke")
+PAIR_B, PAIR_T = 4, 16
+
+
+def _collective_sizes():
+    """A dispatch mode that records each functional collective's op
+    name and result bytes, as the dry run's counter does; DTensor ops
+    are handed back to DTensor, whose local ops then reach the mode."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = func._overloadpacket.__name__
+            if func.namespace == "_c10d_functional" and name != "wait_tensor":
+                self.seen.append((name, out.numel() * out.element_size()))
+            return out
+
+    return Sizes()
+
+
+def tp_pair(rank, mesh):
+    """Each ``PAIR_ARCHS`` config's loss and every master's gradient, the
+    masters and the batch placed by the sharding rules on ``mesh``, with
+    the functional collectives the step ran (op, result bytes) and the
+    calls of the autograd pair's backwards; the single-device step is
+    the test's."""
+    from repro_torch.models import common
+
+    calls = {"copy_to_model": 0, "reduce_from_model": 0}
+    real = {name: getattr(common, cls).backward
+            for name, cls in (("copy_to_model", "_CopyToModel"),
+                              ("reduce_from_model", "_ReduceFromModel"))}
+
+    def counted(name):
+        def backward(ctx, g):
+            calls[name] += 1
+            return real[name](ctx, g)
+        return staticmethod(backward)
+
+    common._CopyToModel.backward = counted("copy_to_model")
+    common._ReduceFromModel.backward = counted("reduce_from_model")
+    out = {}
+    try:
+        for arch in PAIR_ARCHS:
+            cfg = get_config(arch)
+            params = init_params(cfg, 0, device="cpu", masters=True)
+            batch = _tensors(train_batch(cfg, PAIR_B, PAIR_T))
+            cell = ShapeCell("t", PAIR_T, PAIR_B, "train")
+            for k in calls:
+                calls[k] = 0
+            sizes = _collective_sizes()
+            with sizes:
+                loss, grads = value_and_grad(
+                    device_put(params, param_shardings(model_specs(cfg),
+                                                       cfg, mesh)),
+                    device_put(batch, batch_shardings(cfg, cell, mesh,
+                                                      batch)), cfg)
+            out[arch] = {"loss": float(_host(loss)),
+                         "grads": {k: _host(v)
+                                   for k, v in named_leaves(grads)},
+                         "collectives": sizes.seen, "calls": dict(calls)}
+    finally:
+        common._CopyToModel.backward = staticmethod(real["copy_to_model"])
+        common._ReduceFromModel.backward = staticmethod(
+            real["reduce_from_model"])
+    return out
