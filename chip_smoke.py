@@ -85,8 +85,15 @@ process per source, all at once) and drives both of the port's paths:
   one's, and gemma3-1b's bf16-compressed step, its update held
   against the uncompressed f32 step's (M2),
   llama4-scout's MoE FFN expert-parallel against ``moe_forward`` (M3),
-  and the TP masters saved and restored onto a world of 1, bitwise
-  (M4);
+  the TP masters saved and restored onto a world of 1, bitwise
+  (M4), and, in the same world, the tensor-parallel ``moe_forward`` on
+  DTensors (not expert-parallel) at llama4-scout's and deepseek-v2's
+  published widths (bf16) and then the two ``-smoke`` MoE configs of 8
+  experts at top 2 and top 1 (f32), on the (1, 2) ("data", "model")
+  mesh and again on the (2, 1) one, whose ranks route their own halves
+  of the rows, each against the single-device
+  ``moe_forward`` on the card: routes bitwise, outputs within
+  ``M_MOE_RTOL`` / ``M_SPLIT_TOL`` of the largest output (M6);
 * the dry run (D), after M: one full-size cell of
   ``repro_torch.launch.dryrun`` (granite-8b ``decode_32k`` on 256 fake
   ranks) with its roofline (D1); then a granite-8b decode step and a
@@ -115,7 +122,7 @@ one's can be timed in turns on one card; ``--only serving|families|
 training --tree DIR`` runs S2, S3 or T0-T2 on that checkout's port
 (without S1), whose generations' digests and T1 / T2 figures the same
 phases of this checkout must equal where the single-device path is
-unchanged; ``--only spmd`` runs M2-M5 alone (no M1), and with ``--tree
+unchanged; ``--only spmd`` runs M2-M6 alone (no M1), and with ``--tree
 DIR`` on that checkout's port, so that two commits' TP steps can be
 timed in turns on one card.  It prints one
 line per phase and each phase's seconds.  The line before the last is
@@ -573,13 +580,17 @@ def kernel_timings(device) -> dict:
     return out
 
 
-def device_kernels(fn, reps: int = 20, windows: int = 3) -> dict:
+def device_kernels(fn, reps: int = 20, windows: int = 3, host: bool = False):
     """Per device kernel name, (launches per call, device ms per call) of
     ``fn``, from ``torch.profiler`` over ``windows`` windows of ``reps``
-    calls after one unprofiled call.  The profiler has dropped some of a
-    window's kernels now and then, so a kernel's launches per call are
-    the most any window saw, and its time per launch the mean over every
-    launch of it that the windows saw."""
+    calls after one unprofiled call.  The profiler drops a window's
+    kernel records now and then, some or all of them, and in runs of
+    consecutive windows; so a kernel's launches per call are the most
+    any window saw, and its time per launch the mean over every launch
+    of it that the windows saw.  With ``host`` also returns the host's
+    calls that put work on the device (kernel launches, copies, fills:
+    the runtime's records, which the profiler has not been seen to
+    drop) per call of ``fn``, the most any window saw."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -587,20 +598,27 @@ def device_kernels(fn, reps: int = 20, windows: int = 3) -> dict:
     fn()
     torch.cuda.synchronize()
     seen = {}     # kernel name -> [most in a window, total us, launches]
+    issued = 0    # the most device-work calls of the host in a window
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        calls = 0
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.count:
                 rec = seen.setdefault(e.key, [0, 0.0, 0])
                 rec[0] = max(rec[0], e.count)
                 rec[1] += e.self_device_time_total
                 rec[2] += e.count
-    return {k: (most / reps, most / reps * us / n / 1e3)
-            for k, (most, us, n) in seen.items()}
+            elif e.key.startswith("cu") and any(
+                    w in e.key for w in ("Launch", "Memcpy", "Memset")):
+                calls += e.count
+        issued = max(issued, calls)
+    kernels = {k: (most / reps, most / reps * us / n / 1e3)
+               for k, (most, us, n) in seen.items()}
+    return (kernels, issued / reps) if host else kernels
 
 
 def marked(kernels: dict, marks) -> tuple:
@@ -1756,7 +1774,7 @@ def attention_splits(device) -> list:
 
 
 DECODE_MARK = "decode_attention_kernel"
-PROFILE_SESSIONS = 4                # S1's profiler sessions at most
+PROFILE_SESSIONS = 8                # S1's profiler sessions at most
 PROFILE_WINDOWS, PROFILE_REPS = 3, 20   # device_kernels' defaults
 FLASH_MARK = "flash_fwd_wgmma_kernel"
 
@@ -1767,9 +1785,11 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
     device time of its kernels ``marks`` from the profiler), its plain
     version and one library call (CUDA events, and the device time of
     all its kernels) on the same inputs, with the bound of the
-    function's work.  Raises when the profiler sees no kernel ``marks``
-    or any device work of the wrapper beyond one such kernel a call.
-    ``launched()`` reads the wrapper's launch counter."""
+    function's work.  Raises when the wrapper's counter, the profiler's
+    host records or the kernels it saw show other than one launch of a
+    kernel ``marks`` a call and no other device work, or when no session
+    recorded the host's launches.  ``launched()`` reads the wrapper's
+    launch counter."""
     import torch
 
     def first(x):           # the output of a call that returns more
@@ -1780,31 +1800,52 @@ def _timing(kern, plain, lib, nbytes: int, flops: int, shape: str,
     torch.cuda.synchronize()
     if not err <= ATTN_ATOL["torch.bfloat16"]:
         raise AssertionError(f"kernel disagrees at {shape}: {err}")
-    # The profiler has lost a launch in every window of a session now
-    # and then.  A session that saw fewer launches than calls and no
-    # other device work is profiled again (at most PROFILE_SESSIONS in
-    # all), but only while the wrapper's counter shows one launch a call
-    # in that session: each counted launch returned success and the
-    # session's synchronize raised nothing, so the kernel ran and the
-    # profiler lost its record.  Any other count fails at once.
+    # One launch a call and no other device work: the wrapper's counter,
+    # the host's device-work calls the profiler records (which it has
+    # not been seen to drop) and the kernels it saw on the device, none
+    # beyond the marked one.  The profiler drops kernel records, from
+    # one to all of a window's, in runs of windows; so a session that
+    # saw fewer marked kernels than calls and no contrary sign is
+    # profiled again, PROFILE_SESSIONS in all.  The device time is the
+    # mean of the marked kernel's records seen, per launch; "not
+    # measured" where every session lost them all.
     calls = 1 + PROFILE_WINDOWS * PROFILE_REPS    # device_kernels' calls
+    confirmed = False           # a session's host records saw one a call
+    best = (None, 0)            # device ms per launch, launches per call
     for _ in range(PROFILE_SESSIONS):
         before = launched()
-        kernels = device_kernels(kern, PROFILE_REPS, PROFILE_WINDOWS)
+        kernels, host = device_kernels(kern, PROFILE_REPS, PROFILE_WINDOWS,
+                                       host=True)
         issued = (launched() - before) / calls
         device_ms, per_call = marked(kernels, marks)
         _, every = marked(kernels, ("",))
-        if not (device_ms is not None and per_call < 1 and every == per_call
-                and issued == 1):
+        if issued != 1 or host > 1 or per_call > 1 or every != per_call:
+            raise AssertionError(
+                f"at {shape} the profiler saw {per_call} kernels {marks}, "
+                f"{every} device events and {host} host calls that put "
+                f"work on the device per wrapper call, the wrapper's "
+                f"counter {issued} launches a call, not one")
+        confirmed = confirmed or host == 1
+        if per_call > best[1]:
+            best = (device_ms / per_call, per_call)
+        if confirmed and per_call == 1:
             break
         log(f"S1 at {shape}: the profiler saw {per_call:.2f} kernels "
-            f"{marks} a call in its fullest window, the wrapper's counter "
+            f"{marks} and {host:.2f} host calls that put work on the device "
+            f"a call in its fullest window, the wrapper's counter "
             f"{issued:.2f} launches a call; profiling again")
-    if device_ms is None or per_call != 1 or every != 1 or issued != 1:
+    if not confirmed:
         raise AssertionError(
-            f"at {shape} the profiler saw {per_call} kernels {marks} and "
-            f"{every} device events per wrapper call, the wrapper's "
-            f"counter {issued} launches a call, not one")
+            f"at {shape} no profiler session recorded the host's one "
+            f"launch a call in {PROFILE_SESSIONS} sessions")
+    device_ms = best[0]
+    if device_ms is None:
+        log(f"S1 at {shape}: the profiler lost every record of the kernel "
+            f"in {PROFILE_SESSIONS} sessions; device time not measured")
+    elif best[1] < 1:
+        log(f"S1 at {shape}: the profiler lost some of the kernel's records "
+            f"in every session (at most {best[1]:.2f} a call in a window); "
+            f"device time {fmt_ms(device_ms)} a launch from those it kept")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_OPS_PER_S * 1e3
     return dict(ms=time_ms(kern), device_ms=device_ms,
@@ -3381,8 +3422,16 @@ M_CFG = dict(
     train_layers=2,                    # of granite-8b's 36 (M2)
     train_seq=4096,
     comp_seq=512,                      # gemma3-1b compressed step (M2)
-    moe_tokens=4096,                   # llama4-scout MoE input rows (M3)
+    moe_tokens=4096,                   # MoE FFN input rows (M3, M6)
+    tp_moe=("llama4-scout-17b-a16e",   # M6 (a), (b): published widths
+            "deepseek-v2-236b"),
     device_type="cuda")                # every SPMD tensor lives there
+# M6 (c): one shape of router logits, (moe_tokens, 8), routed at top 2
+# and then at top 1 in the same world (DTensor's sharding cache keys
+# topk without its k: ROADMAP C7), first on the (1, 2) ("data",
+# "model") mesh of (a) and (b), then on the (2, 1) mesh, whose rows
+# split over "data"
+M_TP_MOE_PAIR = ("deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke")
 
 
 def m_sync(dev) -> None:
@@ -3746,22 +3795,131 @@ def m_granite_batch(cfg, device):
         seed=0), 0), device)
 
 
-def m_moe_inputs(device):
-    """llama4-scout's MoE FFN parameters (bf16, seed 0) and one layer's
-    input rows (M_CFG["moe_tokens"] x d_model, unit scale, seed 1)."""
+def m_moe_inputs(device, arch=None, dtype="bfloat16"):
+    """An MoE FFN's parameters (llama4-scout's unless ``arch`` is
+    given; ``dtype``, seed 0) and one layer's input rows
+    (M_CFG["moe_tokens"] x d_model, unit scale, seed 1)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import ffn as F
     from repro_torch.models.common import materialize_params
 
-    cfg = get_config(M_CFG["archs"]["moe"])
-    p = materialize_params(F.moe_specs(cfg), 0, torch.bfloat16, device)
+    dtype = getattr(torch, dtype)
+    cfg = get_config(arch or M_CFG["archs"]["moe"])
+    p = materialize_params(F.moe_specs(cfg), 0, dtype, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     x = torch.randn((1, M_CFG["moe_tokens"], cfg.d_model), generator=gen,
-                    device=device, dtype=torch.float32).to(torch.bfloat16)
+                    device=device, dtype=torch.float32).to(dtype)
     return cfg, p, x
+
+
+def m_tp_moe_steps():
+    """M6's steps in order: (label, arch, dtype, limit of max |err| as a
+    fraction of max |out|, the ("data", "model") mesh's shape)."""
+    a, b = M_CFG["tp_moe"]
+    return ([("a", a, "bfloat16", M_MOE_RTOL, (1, 2)),
+             ("b", b, "bfloat16", M_MOE_RTOL, (1, 2))]
+            + [("c", arch, "float32", M_SPLIT_TOL, grid)
+               for grid in ((1, 2), (2, 1)) for arch in M_TP_MOE_PAIR])
+
+
+def m_moe_route(p, x, cfg, dtype):
+    """``moe_forward``'s output and its route's top indices, kept
+    entries and slots (host copies; gathered when DTensors)."""
+    import torch
+
+    from repro_torch.models import ffn as F
+
+    routes = []
+    real_route = F.route
+    F.route = lambda c, lg: routes.append(real_route(c, lg)) or routes[-1]
+    try:
+        with torch.no_grad():
+            y = F.moe_forward(p, x, cfg, dtype)
+    finally:
+        F.route = real_route
+    r, = routes
+
+    def host(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+
+    return host(y), {f: host(getattr(r, f))
+                     for f in ("top_idx", "keep", "slot")}, r
+
+
+def m_tp_moe_refs(cuda) -> list:
+    """M6's references: the single-device ``moe_forward`` of each step
+    on the card, its output and route on the host."""
+    import torch
+
+    refs = []
+    for _, arch, dtype, _, _ in m_tp_moe_steps():
+        cfg, p, x = m_moe_inputs(cuda, arch, dtype)
+        y, route, _ = m_moe_route(p, x, cfg, getattr(torch, dtype))
+        refs.append((y, route))
+        del p, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def m_tp_moe(devs, dev, refs) -> list:
+    """M6 on one rank of the world of 2: each step's MoE FFN through the
+    tensor-parallel ``moe_forward`` on DTensors, not expert-parallel:
+    the weights placed by ``param_shardings`` on the step's ("data",
+    "model") mesh, the rows as M3 places them on the (1, 2) mesh
+    (experts over "model") and split over "data" on the (2, 1) mesh
+    (the (1, T, d) rows as (2, T / 2, d), the same rows in the same
+    order).  The route is held bitwise against the single-device route
+    and the output against its output; seconds and the rank's peak
+    bytes."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import (NamedSharding, device_put,
+                                             param_shardings)
+    from repro_torch.models import ffn as F
+
+    out = []
+    for (label, arch, dtype, limit, grid), (ref_y, ref_route) in zip(
+            m_tp_moe_steps(), refs):
+        mesh = Mesh(devs.reshape(grid), ("data", "model"))
+        cfg, p, x = m_moe_inputs(dev, arch, dtype)
+        pd = device_put(p, param_shardings(F.moe_specs(cfg), cfg, mesh))
+        rows = ("data",) if grid[0] > 1 else ()
+        xd = device_put(x.reshape(grid[0], -1, x.shape[-1]),
+                        NamedSharding(mesh, rows))
+        del p, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        m_sync(dev)
+        t0 = time.perf_counter()
+        with implicit_replication():
+            y, route, r = m_moe_route(pd, xd, cfg, getattr(torch, dtype))
+        m_sync(dev)
+        seconds = time.perf_counter() - t0
+        out.append(dict(
+            label=label, arch=arch, dtype=dtype, limit=limit, mesh=grid,
+            top_k=cfg.top_k, experts=cfg.n_experts,
+            shape=tuple(r.top_idx.shape),
+            local=tuple(r.top_idx.to_local().shape),
+            placements=str(tuple(r.top_idx.placements)),
+            routes_equal={f: torch.equal(route[f], ref_route[f])
+                          for f in route},
+            kept=int(route["keep"].sum()),
+            max_err=float((y.reshape(ref_y.shape).float()
+                           - ref_y.float()).abs().max()),
+            ref_max=float(ref_y.float().abs().max()),
+            seconds=seconds, peak=m_peak(dev)))
+        del pd, xd, y, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # M5: the routes where two ranks share a kv head, on the card, at the
@@ -3890,11 +4048,12 @@ def m_split_routes(devs, dev) -> dict:
     return out
 
 
-def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
+def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref, tp_moe_refs):
     """One SPMD rank of phase M's world: M2 (the TP train step and its
-    control, the compressed step), M3 (expert-parallel MoE), M4's save
-    and M5 (the routes where two ranks share a kv head).  Returns host
-    values only."""
+    control, the compressed step), M3 (expert-parallel MoE), M4's save,
+    M5 (the routes where two ranks share a kv head) and M6 (the
+    tensor-parallel MoE route on DTensors).  Returns host values
+    only."""
     M_CFG.update(cfg_m)
     import numpy as np
     import torch
@@ -4150,6 +4309,11 @@ def m_rank(rank, mesh, cfg_m, ckpt_dir, moe_ref):
     t0 = time.perf_counter()
     out["m5"] = m_split_routes(devs, dev)
     out["m5"]["seconds"] = time.perf_counter() - t0
+
+    # ---- M6: the tensor-parallel MoE route on DTensors -----------------
+    t0 = time.perf_counter()
+    out["m6"] = m_tp_moe(devs, dev, tp_moe_refs)
+    out["m6_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -4207,7 +4371,7 @@ def _flat_shardings(tree):
 
 
 def m_spmd(cuda, smi: str) -> dict:
-    """Phases M2-M5 in one SPMD world of 2 ranks, checked against the
+    """Phases M2-M6 in one SPMD world of 2 ranks, checked against the
     single-device runs made here first."""
     import tempfile
 
@@ -4215,7 +4379,6 @@ def m_spmd(cuda, smi: str) -> dict:
 
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.mesh import backend, make_test_mesh, spawn
-    from repro_torch.models import ffn as F
     from repro_torch.models.common import named_leaves
     from repro_torch.models.model import init_params
     from repro_torch.train.optimizer import OptConfig
@@ -4224,7 +4387,7 @@ def m_spmd(cuda, smi: str) -> dict:
 
     devices = m_spmd_devices()
     world = make_test_mesh((2,), ("model",), devices=devices)
-    log(f"M2-M5 SPMD world: 2 ranks on {devices} over "
+    log(f"M2-M6 SPMD world: 2 ranks on {devices} over "
         f"{backend(world)} [{smi}]")
 
     # single-device references on the card
@@ -4248,23 +4411,20 @@ def m_spmd(cuda, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mcfg, p, x = m_moe_inputs(cuda)
-    routes = []
-    real_route = F.route
-    F.route = lambda c, lg: routes.append(real_route(c, lg)) or routes[-1]
-    try:
-        with torch.no_grad():
-            y = F.moe_forward(p, x, mcfg, torch.bfloat16)
-    finally:
-        F.route = real_route
-    moe_ref = (y.cpu(), routes[0].top_idx.cpu())
-    del p, x, y, routes
+    y, route, _ = m_moe_route(p, x, mcfg, torch.bfloat16)
+    moe_ref = (y, route["top_idx"])
+    del p, x, y, route
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp_moe_refs = m_tp_moe_refs(cuda)
+    log(f"M6 single-device references: {time.perf_counter() - t0:.1f} s")
 
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as ckpt_dir:
         t0 = time.perf_counter()
-        outs = spawn(m_rank, world, M_CFG, ckpt_dir, moe_ref)
+        outs = spawn(m_rank, world, M_CFG, ckpt_dir, moe_ref, tp_moe_refs)
         world_s = time.perf_counter() - t0
         m2 = [o["m2"] for o in outs]
         for r, o in enumerate(m2):
@@ -4337,6 +4497,28 @@ def m_spmd(cuda, smi: str) -> dict:
                     and not all(m5["launches"].values()):
                 raise AssertionError(f"M5 rank {r}: a kernel never "
                                      f"launched: {m5['launches']}")
+            for m6 in o["m6"]:
+                log(f"M6 ({m6['label']}) {m6['arch']} tensor-parallel "
+                    f"moe_forward on DTensors, {m6['dtype']}, "
+                    f"{m6['experts']} experts, top {m6['top_k']}, "
+                    f"(data, model) mesh {m6['mesh']}, rank {r}: "
+                    f"top_idx {m6['shape']} (local {m6['local']}, "
+                    f"{m6['placements']}); routes bitwise equal to the "
+                    f"single-device route: {m6['routes_equal']} "
+                    f"({m6['kept']:,} entries kept); max |err| "
+                    f"{m6['max_err']:.4g} of max |out| {m6['ref_max']:.4g} "
+                    f"(limit {m6['limit']} of it); {m6['seconds']:.2f} s, "
+                    f"peak {m6['peak'] / 1e9:.2f} GB [{smi}]")
+                # on the (2, 1) mesh each rank routes its own half of
+                # the rows
+                split = m6["local"][0] * m6["mesh"][0] == m6["shape"][0] \
+                    and (m6["mesh"][0] == 1
+                         or "Shard(dim=0)" in m6["placements"])
+                if not (all(m6["routes_equal"].values()) and split
+                        and m6["max_err"] <= m6["limit"] * m6["ref_max"]):
+                    raise AssertionError(f"M6 rank {r}: {m6}")
+            log(f"M6 rank {r}: {o['m6_seconds']:.1f} s, the weights' draws "
+                f"and placement included [{smi}]")
         saved = {}
         for o in outs:
             for k, v in o["digests"].items():
@@ -4353,7 +4535,7 @@ def m_spmd(cuda, smi: str) -> dict:
                 f"of 2 (save {outs[0]['save_seconds']:.1f} s) restored onto "
                 f"a world of {w.size} in {res[0]['seconds']:.1f} s, every "
                 f"leaf bitwise equal on the placements asked for [{smi}]")
-    log(f"M2-M5 world: {world_s:.1f} s")
+    log(f"M2-M6 world: {world_s:.1f} s")
     return {"flash_attention": sum(o["m2"]["flash"]
                                    + o["m5"]["launches"]["flash_attention"]
                                    for o in outs),
@@ -4375,7 +4557,7 @@ M_KERNELS = (
 
 
 def sharded_phase(cuda, smi: str) -> dict:
-    """Phase M: M1, then M2-M5; returns the launches of the sharded
+    """Phase M: M1, then M2-M6; returns the launches of the sharded
     paths by kernel."""
     launches = m_relational(cuda, smi)
     launches.update(m_spmd(cuda, smi))

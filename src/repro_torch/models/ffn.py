@@ -94,6 +94,69 @@ class Routing(NamedTuple):
     #                            dump slot E * capacity when dropped
 
 
+def _gate_topk(logits: torch.Tensor, k: int):
+    """``torch.topk(torch.softmax(logits, -1), k, -1)`` of (S, E) logits,
+    computed on each rank's own rows when ``logits`` is a DTensor.
+
+    torch registers ``aten.topk.default``'s DTensor strategy
+    (``torch.distributed.tensor._ops._math_ops.topk_strategy``) with
+    ``RuntimeSchemaInfo(2)``: its sharding cache keys a call by the
+    arguments from index 2 on, so k (index 1) is not in the key, and a
+    second call on logits of the same shape and placements with another
+    k read the first one's output shape (torch 2.13 and 2.11).  So no
+    DTensor op sees k: :class:`_LocalGateTopK` runs the softmax and the
+    topk on the local rows, whether or not a torch version keys k."""
+    if not _is_dtensor(logits):
+        return torch.topk(torch.softmax(logits, dim=-1), k, dim=-1)
+    return _LocalGateTopK.apply(logits, k)
+
+
+class _LocalGateTopK(torch.autograd.Function):
+    """The forward places the logits as DTensor's softmax places them
+    (the expert dim whole, any ``Partial`` summed: the same collectives),
+    takes the softmax and the topk of the local tensor, and gives the
+    gates and indices back as DTensors placed as the logits' rows are,
+    with their global shape (S, k) set here.  The backward is torch's
+    own for the two ops (``topk``'s scatter into zeros, then
+    ``_softmax_backward_data``), on DTensors: DTensor places the
+    gradient as it did when it ran the forward ops itself."""
+
+    @staticmethod
+    def forward(ctx, logits, k):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        mesh, last = logits.device_mesh, logits.ndim - 1
+        placements = tuple(
+            Replicate() if pl.is_partial() or isinstance(pl, Shard)
+            and pl.dim % logits.ndim == last else pl
+            for pl in logits.placements)
+        if placements != tuple(logits.placements):
+            logits = logits.redistribute(mesh, placements)
+        gates = torch.softmax(logits.to_local(), dim=-1)
+        vals, idx = torch.topk(gates, k, dim=-1)
+        s, e = logits.shape
+
+        def wrap(t, width):
+            return DTensor.from_local(t, mesh, placements, run_check=False,
+                                      shape=(s, width), stride=(width, 1))
+
+        gates, vals, idx = wrap(gates, e), wrap(vals, k), wrap(idx, k)
+        ctx.save_for_backward(gates, idx)
+        ctx.mark_non_differentiable(idx)
+        # no zeros are made for the indices' (absent) gradient
+        ctx.set_materialize_grads(False)
+        return vals, idx
+
+    @staticmethod
+    def backward(ctx, g_vals, _):
+        if g_vals is None:
+            return None, None
+        gates, idx = ctx.saved_tensors
+        g = g_vals.new_zeros(gates.shape).scatter(-1, idx, g_vals)
+        return torch._softmax_backward_data(g, gates, -1,
+                                            gates.dtype), None
+
+
 def route(cfg: ArchConfig, logits: torch.Tensor) -> Routing:
     """Top-k routing and capacity-bounded slots from router logits
     (S, E), exactly as the JAX package's ``moe_forward``."""
@@ -101,8 +164,7 @@ def route(cfg: ArchConfig, logits: torch.Tensor) -> Routing:
     e, k = cfg.n_experts, cfg.top_k
     if _is_dtensor(logits):
         _register_searchsorted_sharding()
-    gates = torch.softmax(logits.float(), dim=-1)
-    top_vals, top_idx = torch.topk(gates, k, dim=-1)       # (S, k)
+    top_vals, top_idx = _gate_topk(logits.float(), k)      # (S, k)
     top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
                                       min=1e-9)
     # per-expert slots, clamped to S (one expert never receives more
@@ -181,9 +243,11 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     keep = r.keep[:, None].to(dtype)
 
     # token -> slot scatter; every dropped entry lands, zeroed, in the
-    # dump row E * capacity, which is cut off
-    buf = xf.new_zeros((e * cap + 1, d), dtype=dtype)
-    buf[r.slot] = xf[r.sorted_tok] * keep
+    # dump row E * capacity, which is cut off.  Out of place: DTensor has
+    # no strategy for the in-place index_put_ in some torch versions
+    # (2.11), and places the out-of-place one in every version
+    buf = xf.new_zeros((e * cap + 1, d), dtype=dtype).index_put(
+        (r.slot,), xf[r.sorted_tok] * keep)
     expert_in = _whole_capacity(buf[:-1].reshape(e, cap, d))
 
     h = F.silu(torch.bmm(expert_in, p["w1"])) * torch.bmm(expert_in,

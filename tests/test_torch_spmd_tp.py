@@ -6,15 +6,19 @@ CPU ranks, against the port's single-device step.
 Two worlds, each started by ``repro_torch.launch.mesh.spawn`` with
 ``torch_spmd_workers.tp_pair``: 2 ranks over ("model",), as phase M's
 M2 splits granite-8b on the card, and 2 x 2 over ("data", "model").  In
-each, five ``-smoke`` configs (dense GQA, GQA over one kv head, Mamba,
-RG-LRU with local attention, MLA with the routed MoE) take one loss and
-gradient on masters and a batch placed by the sharding rules.  The
-limits are M2's: the loss within 2e-4 of the single-device loss
+each, six ``-smoke`` configs (dense GQA, GQA over one kv head, Mamba,
+RG-LRU with local attention, MLA with the routed MoE at top 2, then
+attention with the routed MoE at top 1 over as many experts) take one
+loss and gradient on masters and a batch placed by the sharding rules.
+The limits are M2's: the loss within 2e-4 of the single-device loss
 (relative), the gradient norm within 1e-3 (relative); each gradient
-leaf is held within 1e-3 of its own largest entry.  No all-reduce of
-the step is as large as a rank's vocab share of the f32 logits, over
-("model",): the logits stay split by vocab, and the stream's
-all-reduces move (rows, T, d_model).
+leaf is held within 1e-3 of its own largest entry, but for a top-1
+router's, whose exact gradient is zero: there both are held below 1e-6
+of the gradient norm.  No all-reduce of the step is as large as a
+rank's vocab share of the f32 logits, over ("model",): the logits stay
+split by vocab, and the stream's all-reduces move (rows, T, d_model).
+No argument that DTensor's sharding cache leaves out of its key shapes
+an op's output.
 """
 import math
 
@@ -60,6 +64,12 @@ def single_device():
     return out
 
 
+def _zero_gradient(cfg, key: str) -> bool:
+    """A top-1 router's exact gradient is zero: its one gate is
+    renormalized to v / v = 1."""
+    return cfg.top_k == 1 and key.endswith("ffn/router")
+
+
 def _norm(grads) -> float:
     return math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
                          for g in grads.values()))
@@ -77,6 +87,11 @@ def test_tp_step_matches_the_single_device_step(world, single_device, arch):
             GNORM_RTOL * _norm(want), (name, rank)
         assert sorted(got["grads"]) == sorted(want)
         for key, g in got["grads"].items():
+            if _zero_gradient(get_config(arch), key):
+                # both sides are rounding: far below the step's norm
+                assert max(float(np.abs(g).max()), float(np.abs(
+                    want[key]).max())) <= 1e-6 * _norm(want), (name, key)
+                continue
             scale = float(np.abs(want[key]).max())
             np.testing.assert_allclose(g, want[key], rtol=0,
                                        atol=GNORM_RTOL * scale,
@@ -100,3 +115,43 @@ def test_the_pair_carries_the_step(world, arch):
         assert sizes
         if name == "model2":
             assert max(sizes) < vocab_share, max(sizes)
+
+
+# Every non-tensor argument of a DTensor op that the step dispatches and
+# that DTensor's sharding cache leaves out of its key
+# (``torch_spmd_workers.unkeyed_args``), with why it cannot decide an
+# output's shape, under torch 2.13 and 2.11 (the last three: 2.11 only).
+# ``aten.topk``'s k was one (ROADMAP C7): ``route`` now takes its top k
+# outside DTensor's propagation.
+SHAPELESS_UNKEYED = {
+    ("aten.floor_divide.default", "other"): "a scalar, elementwise",
+    ("aten.full_like.default", "fill_value"): "the input's shape",
+    ("aten.full_like.default", "pin_memory"): "the input's shape",
+    ("aten.gelu.default", "approximate"): "elementwise",
+    ("aten.gelu_backward.default", "approximate"): "elementwise",
+    ("aten.index_put.default", "accumulate"): "the shape of self",
+    ("aten.new_zeros.default", "device"): "size and dtype are keyed",
+    ("aten.new_zeros.default", "layout"): "size and dtype are keyed",
+    ("aten.new_zeros.default", "pin_memory"): "size and dtype are keyed",
+    ("aten.ones_like.default", "memory_format"): "the input's shape",
+    ("aten.ones_like.default", "pin_memory"): "the input's shape",
+    ("aten.searchsorted.Tensor", "side"): "the values' shape",
+    ("aten.softplus_backward.default", "beta"): "elementwise",
+    ("aten.softplus_backward.default", "threshold"): "elementwise",
+    ("aten.add.Tensor", "other"): "a scalar, elementwise",
+    ("aten.clamp.default", "min"): "a scalar, elementwise",
+    ("aten.pow.Tensor_Scalar", "exponent"): "a scalar, elementwise",
+}
+
+
+@pytest.mark.parametrize("arch", W.PAIR_ARCHS)
+def test_no_unkeyed_argument_shapes_a_dtensor_op(world, arch):
+    """DTensor reuses a cached sharding decision, output shape included,
+    for calls that differ only in arguments its key leaves out; each
+    such argument the step passes is one that no output's shape depends
+    on (torch 2.13's registrations; the table holds 2.11's too)."""
+    name, ranks = world
+    for rank, out in enumerate(ranks):
+        unkeyed = {tuple(a) for a in out[arch]["unkeyed"]}
+        assert unkeyed <= set(SHAPELESS_UNKEYED), \
+            (name, rank, sorted(unkeyed - set(SHAPELESS_UNKEYED)))

@@ -402,19 +402,56 @@ def scan_blocks(rank, mesh):
 # the block kinds whose tensor-parallel products the autograd pair of
 # ``models/common.py`` (copy_to_model / reduce_from_model) carries: dense
 # GQA, GQA over one kv head, Mamba, RG-LRU with local attention, and MLA
-# with the routed and shared MoE.  One MoE config a process: DTensor's
-# sharding cache keys ``topk`` without its k (torch 2.13), so a second
-# config of another top_k would read the first one's output shape
-# (ROADMAP C7)
+# with the routed and shared MoE; then the routed and shared MoE again
+# at another top k over the same number of experts, in the same world
 PAIR_ARCHS = ("granite-8b-smoke", "gemma3-1b-smoke", "falcon-mamba-7b-smoke",
-              "recurrentgemma-9b-smoke", "deepseek-v2-236b-smoke")
+              "recurrentgemma-9b-smoke", "deepseek-v2-236b-smoke",
+              "llama4-scout-17b-a16e-smoke")
 PAIR_B, PAIR_T = 4, 16
+
+
+_TENSOR = "<tensor>"     # a tensor argument, as a DTensor call keeps it
+
+
+def _is_tensor_arg(a) -> bool:
+    return a is _TENSOR or isinstance(a, torch.Tensor) or (
+        isinstance(a, (list, tuple))
+        and any(isinstance(x, torch.Tensor) for x in a))
+
+
+def unkeyed_args(calls) -> set:
+    """Of DTensor op calls ``(op, args, kwargs)``, each ``(op name,
+    argument name)`` of a non-tensor argument that DTensor's sharding
+    cache leaves out of its key: a positional one before the op's
+    registered ``static_argnum`` (every one where the op registers no
+    ``RuntimeSchemaInfo``), a keyword one outside its
+    ``static_kwargkey``.  A cached decision is reused whatever such an
+    argument is, so none may decide an output's shape."""
+    from torch.distributed.tensor import DTensor
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    out = set()
+    for func, args, kwargs in calls:
+        info = prop.op_to_schema_info.get(func) or \
+            prop.op_to_schema_info_for_single_dim_strategy.get(func)
+        first = info.static_argnum if info else len(args)
+        keys = (info.static_kwargkey or []) if info else []
+        names = [a.name for a in func._schema.arguments]
+        for i, a in enumerate(args[:first]):
+            if not _is_tensor_arg(a):
+                out.add((str(func), names[i]))
+        for k, v in kwargs.items():
+            if k not in keys and not _is_tensor_arg(v):
+                out.add((str(func), k))
+    return out
 
 
 def _collective_sizes():
     """A dispatch mode that records each functional collective's op
     name and result bytes, as the dry run's counter does; DTensor ops
-    are handed back to DTensor, whose local ops then reach the mode."""
+    are handed back to DTensor, whose local ops then reach the mode.
+    Each DTensor op call is kept in ``dtensor_calls`` (op, non-tensor
+    arguments) for :func:`unkeyed_args`."""
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -422,9 +459,15 @@ def _collective_sizes():
         def __init__(self):
             super().__init__()
             self.seen = []
+            self.dtensor_calls = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(issubclass(t, DTensor) for t in types):
+                self.dtensor_calls.append((
+                    func, tuple(_TENSOR if _is_tensor_arg(a) else a
+                                for a in args),
+                    {k: v for k, v in (kwargs or {}).items()
+                     if not _is_tensor_arg(v)}))
                 return NotImplemented
             out = func(*args, **(kwargs or {}))
             name = func._overloadpacket.__name__
@@ -438,9 +481,10 @@ def _collective_sizes():
 def tp_pair(rank, mesh):
     """Each ``PAIR_ARCHS`` config's loss and every master's gradient, the
     masters and the batch placed by the sharding rules on ``mesh``, with
-    the functional collectives the step ran (op, result bytes) and the
-    calls of the autograd pair's backwards; the single-device step is
-    the test's."""
+    the functional collectives the step ran (op, result bytes), the
+    calls of the autograd pair's backwards and the DTensor ops'
+    arguments left out of the sharding cache's key
+    (:func:`unkeyed_args`); the single-device step is the test's."""
     from repro_torch.models import common
 
     calls = {"copy_to_model": 0, "reduce_from_model": 0}
@@ -475,9 +519,69 @@ def tp_pair(rank, mesh):
             out[arch] = {"loss": float(_host(loss)),
                          "grads": {k: _host(v)
                                    for k, v in named_leaves(grads)},
-                         "collectives": sizes.seen, "calls": dict(calls)}
+                         "collectives": sizes.seen, "calls": dict(calls),
+                         "unkeyed": sorted(unkeyed_args(
+                             sizes.dtensor_calls))}
     finally:
         common._CopyToModel.backward = staticmethod(real["copy_to_model"])
         common._ReduceFromModel.backward = staticmethod(
             real["reduce_from_model"])
     return out
+
+
+# deepseek-v2-smoke (top 2), llama4-scout-smoke (top 1), then
+# deepseek-v2-smoke again: router logits of one shape and placement (the
+# same rows, 8 experts) routed at another k in between, in one world;
+# dropless at the EP test's capacity factor (moe_config), then each
+# config with drops at 0.5
+ROUTE_CALLS = (("deepseek-v2-236b-smoke", 8.0),
+               ("llama4-scout-17b-a16e-smoke", 8.0),
+               ("deepseek-v2-236b-smoke", 8.0),
+               ("deepseek-v2-236b-smoke", 0.5),
+               ("llama4-scout-17b-a16e-smoke", 0.5))
+
+
+def moe_routes(rank, mesh, weights, rows):
+    """``moe_forward`` on DTensors (not expert-parallel) for each
+    ``ROUTE_CALLS`` config and capacity factor in turn: ``weights[i]``
+    (numpy, the FFN's specs) placed by ``param_shardings``, ``rows[i]``
+    (B, T, d) split over the data axes.  Returns each call's output and
+    its route (``top_idx``, ``top_vals``, ``sorted_tok``, ``keep``,
+    ``slot``), gathered, with the shapes and placements of the route's
+    DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import ffn as F
+
+    out = []
+    real = F.route
+    for (arch, cf), w, x in zip(ROUTE_CALLS, weights, rows):
+        cfg = replace(get_config(arch), capacity_factor=cf)
+        seen = []
+        F.route = lambda c, lg: seen.append(real(c, lg)) or seen[-1]
+        try:
+            p = device_put(_tensor_tree(w), param_shardings(
+                F.moe_specs(cfg), cfg, mesh))
+            xd = device_put(torch.from_numpy(x),
+                            NamedSharding(mesh, (data_axes(mesh),)))
+            with torch.no_grad(), implicit_replication():
+                y = F.moe_forward(p, xd, cfg, torch.float32)
+        finally:
+            F.route = real
+        r, = seen
+        fields = ("top_idx", "top_vals", "sorted_tok", "keep", "slot")
+        out.append({
+            "arch": arch, "out": _host(y), "capacity": r.capacity,
+            **{f: _host(getattr(r, f)) for f in fields},
+            "shapes": {f: (tuple(getattr(r, f).shape),
+                           tuple(getattr(r, f).to_local().shape),
+                           str(tuple(getattr(r, f).placements)))
+                       for f in fields}})
+    return out
+
+
+def _tensor_tree(tree):
+    """A tree of numpy arrays as tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(tree)
