@@ -93,7 +93,13 @@ process per source, all at once) and drives both of the port's paths:
   mesh and again on the (2, 1) one, whose ranks route their own halves
   of the rows, each against the single-device
   ``moe_forward`` on the card: routes bitwise, outputs within
-  ``M_MOE_RTOL`` / ``M_SPLIT_TOL`` of the largest output (M6);
+  ``M_MOE_RTOL`` / ``M_SPLIT_TOL`` of the largest output (M6); then a
+  world of 4 ranks over ("data", "model") = (2, 2) (a card each where
+  there are four, else all on ``cuda:0`` over gloo): the six ``-smoke``
+  configs' tensor-parallel train step, llama4-scout's at published
+  widths (one of 48 layers, bf16 on f32 masters) and deepseek-v2's MoE
+  FFN forward and backward on DTensors, each against the single-device
+  step on the card (M7);
 * the dry run (D), after M: one full-size cell of
   ``repro_torch.launch.dryrun`` (granite-8b ``decode_32k`` on 256 fake
   ranks) with its roofline (D1); then a granite-8b decode step and a
@@ -122,9 +128,10 @@ one's can be timed in turns on one card; ``--only serving|families|
 training --tree DIR`` runs S2, S3 or T0-T2 on that checkout's port
 (without S1), whose generations' digests and T1 / T2 figures the same
 phases of this checkout must equal where the single-device path is
-unchanged; ``--only spmd`` runs M2-M6 alone (no M1), and with ``--tree
+unchanged; ``--only spmd`` runs M2-M7 alone (no M1), and with ``--tree
 DIR`` on that checkout's port, so that two commits' TP steps can be
-timed in turns on one card.  It prints one
+timed in turns on one card; ``--only moe_train`` runs M7 alone (also
+with ``--tree``).  It prints one
 line per phase and each phase's seconds.  The line before the last is
 the kernels' JSON; where phase D ran, the line before it is the scan
 operators' JSON (D4; they are not kernels); the last line is the device
@@ -3425,6 +3432,12 @@ M_CFG = dict(
     moe_tokens=4096,                   # MoE FFN input rows (M3, M6)
     tp_moe=("llama4-scout-17b-a16e",   # M6 (a), (b): published widths
             "deepseek-v2-236b"),
+    m7_train=dict(arch="llama4-scout-17b-a16e", layers=1, batch=2,
+                  seq=2048),           # M7 (a): M3's 4,096 rows
+    m7_ffn="deepseek-v2-236b",         # M7 (b), at moe_tokens rows
+    m7_pairs=("granite-8b-smoke", "gemma3-1b-smoke",       # M7 (c)
+              "falcon-mamba-7b-smoke", "recurrentgemma-9b-smoke",
+              "deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke"),
     device_type="cuda")                # every SPMD tensor lives there
 # M6 (c): one shape of router logits, (moe_tokens, 8), routed at top 2
 # and then at top 1 in the same world (DTensor's sharding cache keys
@@ -3808,11 +3821,17 @@ def m_moe_inputs(device, arch=None, dtype="bfloat16"):
     dtype = getattr(torch, dtype)
     cfg = get_config(arch or M_CFG["archs"]["moe"])
     p = materialize_params(F.moe_specs(cfg), 0, dtype, device)
+    return cfg, p, m_moe_rows(cfg, device, dtype, seed=1)
+
+
+def m_moe_rows(cfg, device, dtype, seed: int):
+    """M_CFG["moe_tokens"] x d_model rows of unit scale, seeded."""
+    import torch
+
     gen = torch.Generator(device=device)
-    gen.manual_seed(1)
-    x = torch.randn((1, M_CFG["moe_tokens"], cfg.d_model), generator=gen,
-                    device=device, dtype=torch.float32).to(dtype)
-    return cfg, p, x
+    gen.manual_seed(seed)
+    return torch.randn((1, M_CFG["moe_tokens"], cfg.d_model), generator=gen,
+                       device=device, dtype=torch.float32).to(dtype)
 
 
 def m_tp_moe_steps():
@@ -4370,9 +4389,458 @@ def _flat_shardings(tree):
         yield tree
 
 
+# ---- M7: the tensor-parallel MoE train step on a (2, 2) mesh ----------
+# A world of its own, 4 ranks over ("data", "model") = (2, 2): a card
+# each where there are four (NCCL), else four ranks sharing cuda:0 over
+# gloo.  Each step is held against the single-device step on the card,
+# made before the world is spawned: (c) the six -smoke configs' whole
+# TP step (loss and gradients, M2's limits and the CPU tests' per-leaf
+# rule; the card's torch failed this backward on every MoE config before
+# the MoE moves were written without accumulating scatters, ROADMAP
+# C10), (a) llama4-scout's whole TP step at its published widths, one of
+# its 48 layers, bf16 compute on f32 masters (loss and grad norm), and
+# (b) deepseek-v2's MoE FFN forward and backward on DTensors (routes
+# bitwise, output within M_MOE_RTOL and every gradient within
+# M7_GRAD_ULPS bf16 ulps of its leaf's largest |grad|).
+M7_PAIR_BATCH = (4, 16)              # the CPU tests' PAIR_B, PAIR_T
+# (b): each gradient within 4 bf16 ulps of its leaf's largest |grad|.
+# On the (2, 2) mesh an entry is the bf16 sum of rounded partial sums
+# over "model" and over "data" (each rounding at most half an ulp of
+# the leaf's largest entry, three more than one device rounds), and the
+# single-device side rounds once: at most 4 ulps apart
+M7_GRAD_ULPS = 4
+M7_ZERO_RTOL = 1e-6                  # (c): a top-1 router's zero gradient
+
+
+def m7_devices():
+    import torch
+
+    return ([f"cuda:{i}" for i in range(4)]
+            if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+
+
+def m7_train_cfg():
+    from repro_torch.configs import get_config
+
+    a = M_CFG["m7_train"]
+    return replace(get_config(a["arch"]), n_layers=a["layers"],
+                   attn_impl="pallas")
+
+
+def m7_train_batch(cfg, device):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.trainer import to_device
+
+    a = M_CFG["m7_train"]
+    return to_device(make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=a["seq"], global_batch=a["batch"],
+        seed=0), 0), device)
+
+
+def m7_pair_batch(cfg, device) -> dict:
+    """The CPU tests' batch (``tests/torch_spmd_workers.train_batch``):
+    tokens and labels from one numpy generator, mask all ones."""
+    import numpy as np
+    import torch
+
+    b, t = M7_PAIR_BATCH
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, t)),
+           "labels": rng.integers(0, cfg.vocab_size, (b, t))}
+    out = {k: torch.from_numpy(v.astype(np.int32)) for k, v in out.items()}
+    out["mask"] = torch.ones((b, t))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def m7_placed(specs, shardings, dtype, dev, requires_grad: bool):
+    """The leaves of ``specs`` drawn as ``materialize_params`` draws them
+    (one generator seeded 0, spec order, ``dtype``), each whole on the
+    card only while it is placed: the rank keeps its own block of each,
+    a copy, so that no leaf's whole storage stays behind."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import device_put
+    from repro_torch.models.common import ParamTree, map_specs, \
+        storage_dtype
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    order = iter(list(_flat_shardings(shardings)))
+
+    def one(spec):
+        whole = spec.materialize(gen, storage_dtype(spec, dtype), dev)
+        t = device_put(whole, next(order))
+        local = t.to_local().clone()
+        out = DTensor.from_local(local, t.device_mesh, t.placements,
+                                 run_check=False, shape=t.shape,
+                                 stride=t.stride())
+        del whole, t
+        return out.requires_grad_(requires_grad)
+
+    return ParamTree(map_specs(specs, one))
+
+
+def m7_ffn_grads(p, x, w, cfg, dtype) -> tuple:
+    """``ffn_forward``'s output, its route and the gradients of the
+    linear function ``sum(out * w)`` for the rows ``x`` and each weight
+    of ``p`` (in ``named_leaves`` order, after the rows')."""
+    import torch
+
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import named_leaves
+
+    routes = []
+    real_route = F.route
+    F.route = lambda c, lg: routes.append(real_route(c, lg)) or routes[-1]
+    try:
+        y = F.ffn_forward(p, x, cfg, "moe", dtype)
+    finally:
+        F.route = real_route
+    loss = (y.float() * w.float()).sum()
+    grads = torch.autograd.grad(loss, [x] + [v for _, v in named_leaves(p)])
+    r, = routes
+    return y.detach(), r, grads
+
+
+def _m7_host(t):
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    return t.detach().cpu()
+
+
+def m7_refs(cuda, ref_dir) -> dict:
+    """M7's single-device references on the card, each freed before the
+    next: (c) each pair config's loss and gradients (host), (a) the
+    loss, grad norm, seconds and peak of the llama4-scout step, (b)
+    deepseek-v2's MoE FFN output, route, row gradient and each weight's
+    largest |grad| (host), its weight gradients written to ``ref_dir``,
+    one file a leaf, for the ranks to read their blocks of."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import named_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import value_and_grad
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    refs = {"pairs": {}}
+    for arch in M_CFG["m7_pairs"]:
+        cfg = get_config(arch)
+        loss, grads = value_and_grad(init_params(cfg, 0, cuda, masters=True),
+                                     m7_pair_batch(cfg, cuda), cfg)
+        refs["pairs"][arch] = (float(loss), {k: v.cpu().numpy() for k, v
+                                             in named_leaves(grads)})
+        del grads
+    free()
+
+    cfg = m7_train_cfg()
+    masters = init_params(cfg, 0, cuda, masters=True)
+    batch = m7_train_batch(cfg, cuda)
+    if cuda.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(cuda)
+    m_sync(cuda)
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(masters, batch, cfg)
+    gnorm = float(global_norm(grads))
+    m_sync(cuda)
+    refs["train"] = dict(loss=float(loss), gnorm=gnorm,
+                         seconds=time.perf_counter() - t0, peak=m_peak(cuda),
+                         params=sum(v.numel() for _, v in
+                                    named_leaves(masters)))
+    del masters, grads, batch, loss
+    free()
+
+    cfg, p, x = m_moe_inputs(cuda, M_CFG["m7_ffn"], "bfloat16")
+    for _, v in named_leaves(p):
+        v.requires_grad_(True)
+    x.requires_grad_(True)
+    # the weights of the linear function whose gradient (b) takes
+    w = m_moe_rows(cfg, cuda, torch.bfloat16, seed=2)
+    m_sync(cuda)
+    t0 = time.perf_counter()
+    y, r, grads = m7_ffn_grads(p, x, w, cfg, torch.bfloat16)
+    m_sync(cuda)
+    seconds = time.perf_counter() - t0
+    keys = [k for k, _ in named_leaves(p)]
+    refs["ffn"] = dict(out=y.cpu(), dx=grads[0].cpu(), seconds=seconds,
+                       route={f: getattr(r, f).cpu()
+                              for f in ("top_idx", "keep", "slot")},
+                       grad_max={k: float(g.float().abs().max())
+                                 for k, g in zip(["x"] + keys, grads)},
+                       files={})
+    for i, (k, g) in enumerate(zip(keys, grads[1:])):
+        path = os.path.join(ref_dir, f"grad_{i}.pt")
+        torch.save(g.cpu(), path)
+        refs["ffn"]["files"][k] = path
+    del p, x, w, y, r, grads
+    free()
+    return refs
+
+
+def m7_rank(rank, mesh, cfg_m, refs):
+    """One rank of M7's world: (c), (a), (b) on the (2, 2) ("data",
+    "model") mesh, each freed before the next.  Returns host values."""
+    M_CFG.update(cfg_m)
+    import numpy as np
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.sharding import (NamedSharding, batch_shardings,
+                                             device_put, param_shardings)
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import named_leaves
+    from repro_torch.models.model import ShapeCell, init_params, model_specs
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.devices.flat[rank]
+    out = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def full(t) -> float:
+        return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+    def start():
+        free()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        m_sync(dev)
+        return time.perf_counter()
+
+    t_world = time.perf_counter()
+
+    def progress(msg):
+        # rank 0 marks each step's start: a rank that fails names it
+        if rank == 0:
+            log(f"M7 rank 0: {msg}, "
+                f"{time.perf_counter() - t_world:.1f} s into the rank")
+
+    # ---- (c): the six -smoke configs' whole TP step --------------------
+    out["c"] = {}
+    for arch in M_CFG["m7_pairs"]:
+        progress(f"(c) {arch}")
+        cfg = get_config(arch)
+        want_loss, want = refs["pairs"][arch]
+        batch = m7_pair_batch(cfg, dev)
+        cell = ShapeCell("t", M7_PAIR_BATCH[1], M7_PAIR_BATCH[0], "train")
+        params = device_put(init_params(cfg, 0, dev, masters=True),
+                            param_shardings(model_specs(cfg), cfg, mesh))
+        t0 = start()
+        loss, grads = value_and_grad(
+            params, device_put(batch, batch_shardings(cfg, cell, mesh,
+                                                      batch)), cfg)
+        got = {k: _m7_host(v).numpy() for k, v in named_leaves(grads)}
+        seconds = time.perf_counter() - t0
+
+        def norm(gs):
+            return math.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
+                                 for g in gs.values()))
+
+        worst, zero = 0.0, 0.0
+        for key, g in got.items():
+            if cfg.top_k == 1 and key.endswith("ffn/router"):
+                # a top-1 router's exact gradient is zero (its one gate
+                # renormalized to 1): both sides are rounding
+                zero = max(zero, float(np.abs(g).max()),
+                           float(np.abs(want[key]).max()))
+                continue
+            scale = M_GNORM_RTOL * float(np.abs(want[key]).max())
+            err = float(np.abs(g - want[key]).max())
+            worst = max(worst, err / scale if scale
+                        else math.inf if err else 0.0)
+        out["c"][arch] = dict(
+            loss=full(loss), want_loss=want_loss, gnorm=norm(got),
+            want_gnorm=norm(want), worst=worst,
+            zero=zero / (M7_ZERO_RTOL * norm(want)),
+            keys_equal=sorted(got) == sorted(want), seconds=seconds)
+        del params, loss, grads, got
+    free()
+
+    # ---- (a): llama4-scout's TP step at published widths ----------------
+    progress(f"(a) {M_CFG['m7_train']['arch']}")
+    cfg = m7_train_cfg()
+    specs = model_specs(cfg)
+    masters = m7_placed(specs, param_shardings(specs, cfg, mesh),
+                        torch.float32, dev, requires_grad=True)
+    a = M_CFG["m7_train"]
+    cell = ShapeCell("t", a["seq"], a["batch"], "train")
+    batch = m7_train_batch(cfg, dev)
+    batch = device_put(batch, batch_shardings(cfg, cell, mesh, batch))
+    held = sum(v.to_local().numel() * 4 for _, v in named_leaves(masters))
+    FK.reset_launches()
+    t0 = start()
+    loss, grads = value_and_grad(masters, batch, cfg)
+    with implicit_replication():
+        gnorm = full(global_norm(grads))
+    loss = full(loss)
+    m_sync(dev)
+    out["a"] = dict(loss=loss, gnorm=gnorm, seconds=time.perf_counter() - t0,
+                    peak=m_peak(dev), held=held,
+                    flash=FK.LAUNCHES["flash_attention"],
+                    placements=str(tuple(
+                        named_leaves(masters)[0][1].placements)))
+    del masters, batch, grads
+    free()
+
+    # ---- (b): deepseek-v2's MoE FFN, forward and backward ---------------
+    progress(f"(b) {M_CFG['m7_ffn']}")
+    ref = refs["ffn"]
+    cfg = get_config(M_CFG["m7_ffn"])
+    specs = F.moe_specs(cfg)
+    p = m7_placed(specs, param_shardings(specs, cfg, mesh), torch.bfloat16,
+                  dev, requires_grad=True)
+    x, w = (m_moe_rows(cfg, dev, torch.bfloat16, seed) for seed in (1, 2))
+    rows = NamedSharding(mesh, ("data",))
+    xd = device_put(x.reshape(2, -1, cfg.d_model).requires_grad_(True),
+                    rows)
+    wd = device_put(w.reshape(2, -1, cfg.d_model), rows)
+    del x, w
+    t0 = start()
+    with implicit_replication():
+        y, r, grads = m7_ffn_grads(p, xd, wd, cfg, torch.bfloat16)
+    m_sync(dev)
+    seconds = time.perf_counter() - t0
+    peak = m_peak(dev)
+    y = _m7_host(y).reshape(ref["out"].shape)
+    route = {f: _m7_host(getattr(r, f)) for f in ref["route"]}
+    dx = _m7_host(grads[0]).reshape(ref["dx"].shape)
+    errs = {"x": float((dx.float() - ref["dx"].float()).abs().max())}
+    for (key, v), g in zip(named_leaves(p), grads[1:]):
+        if tuple(g.placements) != tuple(v.placements):
+            g = g.redistribute(g.device_mesh, v.placements)
+        _, offset = compute_local_shape_and_global_offset(
+            g.shape, g.device_mesh, g.placements)
+        block = torch.load(ref["files"][key], mmap=True, weights_only=True)
+        local = g.to_local()
+        for d, (o, n) in enumerate(zip(offset, local.shape)):
+            block = block.narrow(d, o, n)
+        errs[key] = float((local.float() - block.to(dev).float())
+                          .abs().max())
+        del block, local
+    out["b"] = dict(
+        routes_equal={f: torch.equal(route[f], ref["route"][f])
+                      for f in route},
+        kept=int(route["keep"].sum()), max_err=float(
+            (y.float() - ref["out"].float()).abs().max()),
+        ref_max=float(ref["out"].float().abs().max()), errs=errs,
+        seconds=seconds, peak=peak)
+    del p, xd, wd, y, r, grads
+    free()
+    progress("done")
+    return out
+
+
+def m7_check(outs, refs, smi: str) -> None:
+    """M7's lines, one a step and rank; raises on any failed check."""
+    ref_a = refs["train"]
+    for rank, o in enumerate(outs):
+        for arch, c in o["c"].items():
+            log(f"M7 (c) {arch} TP step on the (2, 2) mesh, f32, rank "
+                f"{rank}: loss {c['loss']:.6f} (single device "
+                f"{c['want_loss']:.6f}), grad norm {c['gnorm']:.6g} "
+                f"({c['want_gnorm']:.6g}); worst leaf {c['worst']:.3g} of "
+                f"its limit ({M_GNORM_RTOL} of the leaf's max |grad|); "
+                f"{c['seconds']:.2f} s [{smi}]")
+            ok = (abs(c["loss"] - c["want_loss"])
+                  <= M_LOSS_RTOL * abs(c["want_loss"])
+                  and abs(c["gnorm"] - c["want_gnorm"])
+                  <= M_GNORM_RTOL * c["want_gnorm"]
+                  and c["keys_equal"] and c["worst"] <= 1
+                  and c["zero"] <= 1)
+            if not ok:
+                raise AssertionError(f"M7 (c) {arch} rank {rank}: {c}")
+        a = o["a"]
+        log(f"M7 (a) {M_CFG['m7_train']['arch']} TP step, "
+            f"{M_CFG['m7_train']['layers']} layer(s), published widths, "
+            f"B x T = {M_CFG['m7_train']['batch']} x "
+            f"{M_CFG['m7_train']['seq']}, rank {rank}: loss {a['loss']:.6f} "
+            f"(single device {ref_a['loss']:.6f}), grad norm "
+            f"{a['gnorm']:.6g} ({ref_a['gnorm']:.6g}); limits "
+            f"{M_LOSS_RTOL} / {M_GNORM_RTOL} relative; step "
+            f"{a['seconds']:.2f} s (single device {ref_a['seconds']:.2f} s), "
+            f"masters held {a['held'] / 1e9:.2f} GB "
+            f"(of {ref_a['params'] * 4 / 1e9:.2f}), placements "
+            f"{a['placements']}, peak {a['peak'] / 1e9:.2f} GB (single "
+            f"device {ref_a['peak'] / 1e9:.2f}); flash_attention launched "
+            f"{a['flash']} times [{smi}]")
+        if not (abs(a["loss"] - ref_a["loss"]) <= M_LOSS_RTOL * ref_a["loss"]
+                and abs(a["gnorm"] - ref_a["gnorm"])
+                <= M_GNORM_RTOL * ref_a["gnorm"]):
+            raise AssertionError(f"M7 (a) rank {rank}: {a}")
+        if a["flash"] <= 0 and M_CFG["device_type"] == "cuda":
+            raise AssertionError(f"M7 (a) rank {rank}: flash_attention "
+                                 f"never launched")
+        b = o["b"]
+        # each leaf's error in bf16 ulps of its largest |grad|
+        ulps = {k: e / 2.0 ** (math.floor(math.log2(
+            refs["ffn"]["grad_max"][k])) - 7) for k, e in b["errs"].items()}
+        worst = max(ulps, key=ulps.get)
+        log(f"M7 (b) {M_CFG['m7_ffn']} MoE FFN forward and backward on "
+            f"DTensors, bf16, rank {rank}: routes bitwise equal to the "
+            f"single-device route: {b['routes_equal']} ({b['kept']:,} "
+            f"entries kept); max |err| {b['max_err']:.4g} of max |out| "
+            f"{b['ref_max']:.4g} (limit {M_MOE_RTOL} of it); gradients: "
+            f"worst {ulps[worst]:.4g} bf16 ulps of the leaf's max |grad| "
+            f"({worst}; limit {M7_GRAD_ULPS}), rows {ulps['x']:.4g}; "
+            f"{b['seconds']:.2f} s (single device "
+            f"{refs['ffn']['seconds']:.2f} s), peak {b['peak'] / 1e9:.2f} GB "
+            f"[{smi}]")
+        if not (all(b["routes_equal"].values())
+                and b["max_err"] <= M_MOE_RTOL * b["ref_max"]
+                and ulps[worst] <= M7_GRAD_ULPS):
+            raise AssertionError(f"M7 (b) rank {rank}: {b} {ulps}")
+
+
+def m_moe_train(cuda, smi: str) -> dict:
+    """M7 in a world of 4 ranks, checked against the single-device runs
+    made here first; returns its flash_attention launches."""
+    import tempfile
+
+    from repro_torch.launch.mesh import backend, make_test_mesh, spawn
+
+    devices = m7_devices()
+    world = make_test_mesh((2, 2), ("data", "model"), devices=devices)
+    log(f"M7 SPMD world: 4 ranks on {devices} over {backend(world)}, "
+        f"(data, model) = (2, 2) [{smi}]")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    # four ranks' caching allocators share one card: segments that grow
+    # in place keep one rank's freed blocks from stranding what another
+    # needs (read by each rank's CUDA start)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as ref_dir:
+            t0 = time.perf_counter()
+            refs = m7_refs(cuda, ref_dir)
+            log(f"M7 single-device references: "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            outs = spawn(m7_rank, world, M_CFG, refs)
+            log(f"M7 world: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    m7_check(outs, refs, smi)
+    return {"flash_attention": sum(o["a"]["flash"] for o in outs)}
+
+
 def m_spmd(cuda, smi: str) -> dict:
     """Phases M2-M6 in one SPMD world of 2 ranks, checked against the
-    single-device runs made here first."""
+    single-device runs made here first, then M7 in a world of 4."""
     import tempfile
 
     import torch
@@ -4536,9 +5004,10 @@ def m_spmd(cuda, smi: str) -> dict:
                 f"a world of {w.size} in {res[0]['seconds']:.1f} s, every "
                 f"leaf bitwise equal on the placements asked for [{smi}]")
     log(f"M2-M6 world: {world_s:.1f} s")
+    m7 = m_moe_train(cuda, smi)
     return {"flash_attention": sum(o["m2"]["flash"]
                                    + o["m5"]["launches"]["flash_attention"]
-                                   for o in outs),
+                                   for o in outs) + m7["flash_attention"],
             "decode_attention": sum(o["m5"]["launches"]["decode_attention"]
                                     for o in outs)}
 
@@ -4557,7 +5026,7 @@ M_KERNELS = (
 
 
 def sharded_phase(cuda, smi: str) -> dict:
-    """Phase M: M1, then M2-M6; returns the launches of the sharded
+    """Phase M: M1, then M2-M7; returns the launches of the sharded
     paths by kernel."""
     launches = m_relational(cuda, smi)
     launches.update(m_spmd(cuda, smi))
@@ -5278,19 +5747,20 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("relational", "async", "attention",
                                        "serving", "families", "training",
                                        "timings", "surfaces", "benches",
-                                       "sharded", "spmd", "dryrun",
-                                       "properties"),
+                                       "sharded", "spmd", "moe_train",
+                                       "dryrun", "properties"),
                     help="run one group of phases (bring-up); default all")
     ap.add_argument("--tree", type=Path, default=ROOT,
-                    help="with --only timings: time the kernels of the "
-                         "checkout at TREE (for example an earlier commit "
-                         "unpacked by git archive) instead of this one")
+                    help="with --only timings|serving|families|training|"
+                         "spmd|moe_train: run the port of the checkout at "
+                         "TREE (for example an earlier commit unpacked by "
+                         "git archive) instead of this one")
     args = ap.parse_args(argv)
     tree = args.tree.resolve()
     if tree != ROOT and args.only not in ("timings", "serving", "families",
-                                          "training", "spmd"):
+                                          "training", "spmd", "moe_train"):
         ap.error("--tree needs --only timings|serving|families|training|"
-                 "spmd")
+                 "spmd|moe_train")
     # pins cuBLAS's workspace so that deterministic algorithms are
     # available to the serving phase; read when CUDA starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5362,13 +5832,16 @@ def main(argv=None) -> int:
         sharded = phase("sharded", lambda: sharded_phase(cuda, smi))
     if args.only == "spmd":
         sharded = phase("spmd", lambda: m_spmd(cuda, smi))
+    if args.only == "moe_train":
+        sharded = phase("moe_train", lambda: m_moe_train(cuda, smi))
     dryrun = None
     if args.only in (None, "dryrun"):
         dryrun = phase("dryrun", lambda: dryrun_phase(cuda, smi))
-    if args.only in ("sharded", "spmd", "dryrun", "properties"):
+    if args.only in ("sharded", "spmd", "moe_train", "dryrun",
+                     "properties"):
         # bring-up: the path's launches alone, no timings
-        counts = {"sharded": sharded, "spmd": sharded, "dryrun": dryrun,
-                  "properties": properties}[args.only]
+        counts = {"sharded": sharded, "spmd": sharded, "moe_train": sharded,
+                  "dryrun": dryrun, "properties": properties}[args.only]
         kernels = [dict(name=name, route="cuda", source=src, replaces=line,
                         launches=counts.get(counted, 0), path=args.only,
                         launches_by_path={})

@@ -191,7 +191,9 @@ def gloo_collectives_over_all_reduce():
     position has one nonzero term; a reduce-scatter is an all-reduce
     followed by the rank's slice; a shard-to-shard all-to-all is that
     all-gather followed by the rank's chunk, as DTensor already does on
-    CPU meshes.  Twice the bytes of the collective it replaces.
+    CPU meshes.  Twice the bytes of the collective it replaces (16-bit
+    entries travel as int32 words of two entries where the last dim is
+    even, else each widened to an int32).
 
     Raises RuntimeError, rather than run DTensor's own collectives, when
     DTensor's placements call no all-gather or no reduce-scatter it
@@ -225,18 +227,28 @@ def gloo_collectives_over_all_reduce():
         if n == 1:
             return self
         size = self.element_size()
-        wide = torch.int64 if size == 8 else torch.int32
-        src = self.contiguous().view(bits[size]).to(wide)
-        if size < 4:
-            # the narrow bit patterns as non-negative ints, so the sum of
-            # one pattern and zeros gives the pattern back
-            src &= (1 << (8 * size)) - 1
-        shape = list(self.shape)
+        src = self.contiguous()
+        paired = size == 2 and src.dim() > 0 and src.shape[-1] % 2 == 0
+        if paired:
+            # two 16-bit patterns to an int32 word, as they lie: no word
+            # holds two ranks' entries, so each word of the sum is one
+            # rank's word plus zeros, at the bytes of the tensor itself
+            src = src.view(torch.int32)
+        else:
+            wide = torch.int64 if size == 8 else torch.int32
+            src = src.view(bits[size]).to(wide)
+            if size < 4:
+                # the narrow bit patterns as non-negative ints, so the
+                # sum of one pattern and zeros gives the pattern back
+                src &= (1 << (8 * size)) - 1
+        shape = list(src.shape)
         shape[gather_dim] *= n
         out = src.new_zeros(shape)
         out.narrow(gather_dim, r * src.shape[gather_dim],
                    src.shape[gather_dim]).copy_(src)
         out = reduce(out, "sum", group, tag)
+        if paired:
+            return out.view(self.dtype)
         return out.to(bits[size]).view(self.dtype)
 
     def reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):

@@ -348,6 +348,26 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def gathered_on_use(w: torch.Tensor) -> torch.Tensor:
+    """Under autograd, DTensor weight ``w`` with every split over a mesh
+    dim that also splits the batch ("pod", "data": FSDP's split of the
+    "embed" axis) gathered, as ZeRO-3 gathers a weight where it is used;
+    its gradient comes back summed and split as ``w`` is.  The head
+    takes it: left to itself, DTensor kept the head's contraction split
+    over "data" and summed partial logits of every row and the whole
+    vocab there.  Forward-only routes (prefill, decode, whose few rows'
+    partial logits move less than the weight) and plain tensors are left
+    as they are."""
+    if not (_is_dtensor(w) and torch.is_grad_enabled() and w.requires_grad):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = w.device_mesh.mesh_dim_names
+    return _placed(w, w.device_mesh, [
+        Replicate() if isinstance(pl, Shard) and names[i] in ("pod", "data")
+        else pl for i, pl in enumerate(w.placements)])
+
+
 def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` for a weight whose rows (the contraction) a mesh dim
     splits: attention's and the dense FFN's output projections, MLA's,

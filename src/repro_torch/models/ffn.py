@@ -8,7 +8,12 @@ parameters.  The combine puts each token's k contributions back in
 (token, choice) order through the inverse permutation and sums over the
 k choices in a fixed order in the compute dtype: no float atomics, so a
 token's output does not depend on the order its entries were
-dispatched in, and a run repeats bit for bit on the card.  Shared
+dispatched in, and a run repeats bit for bit on the card.  Every move
+between (token, choice) order, sorted-entry order and expert slots is a
+gather or a scatter with unique indices whose backward is again one of
+the two (:class:`_Permute`, :class:`_TokenEntries`,
+:class:`_FromSlots`): no backward accumulates into a scatter, and a
+token's k gradient terms are summed in choice order too.  Shared
 experts (DeepSeek) are a fused dense SwiGLU of width
 n_shared * d_ff_expert.  Plain torch: no Pallas kernel computes the
 MoE in the JAX package either.
@@ -186,18 +191,85 @@ def route(cfg: ArchConfig, logits: torch.Tensor) -> Routing:
                    slot)
 
 
-def combine(contrib: torch.Tensor, order: torch.Tensor, s: int, k: int
-            ) -> torch.Tensor:
-    """Sum each token's k contributions, given in sorted-entry order
-    (``contrib[j]`` belongs to entry ``order[j]``): the inverse
-    permutation puts them back in (token, choice) order and the k terms
-    are added in choice order.  The result does not depend on the
-    dispatch order."""
-    per_entry = contrib[torch.argsort(order)].reshape(s, k, -1)
+def _choice_sum(per_entry: torch.Tensor, k: int) -> torch.Tensor:
+    """(S * k, d) rows in (token, choice) order summed over each token's
+    k choices, in choice order."""
+    per_entry = per_entry.reshape(per_entry.shape[0] // k, k, -1)
     out = per_entry[:, 0]
     for j in range(1, k):
         out = out + per_entry[:, j]
     return out
+
+
+class _Permute(torch.autograd.Function):
+    """``t[idx]`` for a permutation ``idx`` of ``t``'s rows whose inverse
+    is ``inv``.  The backward is the gather ``g[inv]``, where autograd's
+    own would scatter into zeros with an accumulating ``index_put``, an
+    op the card's DTensor (torch 2.11) places with its values split by
+    rows and its indices whole (ROADMAP C10)."""
+
+    @staticmethod
+    def forward(ctx, t, idx, inv):
+        ctx.save_for_backward(inv)
+        return t[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return g[inv], None, None
+
+
+class _TokenEntries(torch.autograd.Function):
+    """``xf[sorted_tok]``: each token's row once for each of its k
+    choices, in sorted-entry order (``sorted_tok = order // k``).  The
+    backward puts the entries' gradient back in (token, choice) order
+    with the inverse permutation ``inv`` and sums each token's k terms
+    in choice order, as :func:`combine` sums its outputs."""
+
+    @staticmethod
+    def forward(ctx, xf, sorted_tok, inv, k):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return xf[sorted_tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, = ctx.saved_tensors
+        return _choice_sum(g[inv], ctx.k), None, None, None
+
+
+class _FromSlots(torch.autograd.Function):
+    """The (E * C, d) expert rows read back at each sorted entry's slot
+    and weighed by ``keep``: a dropped entry (slot E * C) reads the last
+    slot, clamped, and keeps none of it.  The backward is the dispatch's
+    scatter, at the unclamped slots: each kept entry's gradient lands in
+    its own slot and a dropped one's (zero) in a dump row that is cut
+    off, so nothing accumulates."""
+
+    @staticmethod
+    def forward(ctx, rows, slot, keep):
+        ctx.save_for_backward(slot, keep)
+        ctx.n = rows.shape[0]
+        return rows[torch.clamp(slot, max=ctx.n - 1)] * keep
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, keep = ctx.saved_tensors
+        out = g.new_zeros((ctx.n + 1, g.shape[1])).index_put((slot,),
+                                                             g * keep)
+        return out[:-1], None, None
+
+
+def combine(contrib: torch.Tensor, order: torch.Tensor, s: int, k: int,
+            inv: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum each token's k contributions, given in sorted-entry order
+    (``contrib[j]`` belongs to entry ``order[j]``): the inverse
+    permutation ``inv`` (``argsort(order)``, computed when not given)
+    puts them back in (token, choice) order and the k terms are added in
+    choice order.  The result does not depend on the dispatch order."""
+    if inv is None:
+        inv = torch.argsort(order)
+    return _choice_sum(_Permute.apply(contrib, inv, order), k)
 
 
 def _whole_capacity(t: torch.Tensor) -> torch.Tensor:
@@ -229,6 +301,33 @@ class _WholeCapacity(torch.autograd.Function):
         return _gather_dim1(g)
 
 
+def _expert_product(x: torch.Tensor, w: torch.Tensor, dtype
+                    ) -> torch.Tensor:
+    """``torch.bmm(x, w)`` of (E, C, d) rows and (E, d, f) weights.
+    In training, where a mesh dim splits a DTensor weight's contraction
+    dim d (FSDP's "embed" over "data"), the product is taken in f32, so
+    that its partial sums are summed in f32 and rounded once to
+    ``dtype``, as one device's product sums its whole contraction in f32
+    and rounds once: partials rounded to bf16 apiece put deepseek-v2's
+    MoE output on a (2, 2) mesh 3 bf16 ulps off one device's (an H100,
+    published widths).  The partial sums are reduce-scattered over f,
+    where DTensor places a bf16 product's, so that what follows is
+    placed as it would be.  Forward-only routes (prefill, decode) keep
+    the bf16 product: an f32 copy of the weights a step would cost a
+    decode step more than its few rows gain."""
+    if not (_is_dtensor(w) and w.requires_grad
+            and torch.is_grad_enabled() and any(
+            pl.is_shard(1) and w.device_mesh.size(i) > 1
+            for i, pl in enumerate(w.placements))):
+        return torch.bmm(x, w)
+    from torch.distributed.tensor import Shard
+
+    out = torch.bmm(x.float(), w.float())
+    out = out.redistribute(out.device_mesh, [
+        Shard(2) if pl.is_partial() else pl for pl in out.placements])
+    return out.to(dtype)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                 ) -> torch.Tensor:
     b, t, d = x.shape
@@ -246,18 +345,19 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     # dump row E * capacity, which is cut off.  Out of place: DTensor has
     # no strategy for the in-place index_put_ in some torch versions
     # (2.11), and places the out-of-place one in every version
+    inv = torch.argsort(r.order)
     buf = xf.new_zeros((e * cap + 1, d), dtype=dtype).index_put(
-        (r.slot,), xf[r.sorted_tok] * keep)
+        (r.slot,), _TokenEntries.apply(xf, r.sorted_tok, inv, k) * keep)
     expert_in = _whole_capacity(buf[:-1].reshape(e, cap, d))
 
-    h = F.silu(torch.bmm(expert_in, p["w1"])) * torch.bmm(expert_in,
-                                                         p["w3"])
+    h = F.silu(_expert_product(expert_in, p["w1"], dtype)) * \
+        _expert_product(expert_in, p["w3"], dtype)
     out_e = _whole_capacity(torch.bmm(h, p["w2"])).reshape(e * cap, d)
 
-    gathered = out_e[torch.clamp(r.slot, max=e * cap - 1)] * keep
-    contrib = gathered * r.top_vals.reshape(s * k)[r.order][:, None].to(
-        dtype)
-    out = combine(contrib, r.order, s, k)
+    gathered = _FromSlots.apply(out_e, r.slot, keep)
+    gates = _Permute.apply(r.top_vals.reshape(s * k), r.order, inv)
+    contrib = gathered * gates[:, None].to(dtype)
+    out = combine(contrib, r.order, s, k, inv)
     if cfg.n_shared_experts:
         out = out + dense_forward(p["shared"], xf, dtype)
     return out.reshape(b, t, d)

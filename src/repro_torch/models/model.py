@@ -17,9 +17,10 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .common import (ParamSpec, ParamTree, _is_dtensor, constrain,
-                     copy_to_model, cross_entropy, materialize_params,
-                     reduce_from_model, rmsnorm, rmsnorm_spec,
-                     settle_residual, shard_range, storage_dtype)
+                     copy_to_model, cross_entropy, gathered_on_use,
+                     materialize_params, reduce_from_model, rmsnorm,
+                     rmsnorm_spec, settle_residual, shard_range,
+                     storage_dtype)
 from .config import ArchConfig
 from .decoder import decoder_decode_step, decoder_forward, decoder_specs
 
@@ -129,13 +130,11 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Logits (B, T, V).  On DTensors the head is a column-parallel
     product: the normed stream meets the table (or the unembedding)
     where it lies, split by vocab, and the logits stay split by vocab
-    (the vocab-parallel :func:`~.common.cross_entropy` reads them so)."""
+    (the vocab-parallel :func:`~.common.cross_entropy` reads them so),
+    in training by rows as the stream is too."""
     x = copy_to_model(rmsnorm(params["final_norm"], x, cfg.norm_eps))
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["unembed"]
-    return constrain(logits, ("batch", None, "vocab"))
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return constrain(x @ gathered_on_use(w), ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------

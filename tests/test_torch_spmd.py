@@ -389,6 +389,14 @@ class TestGradCompression:
         for out in outs:
             np.testing.assert_array_equal(out["gathered_bits"], want)
 
+    def test_bf16_gather_over_all_reduce_is_bitwise(self, dp_world):
+        """16-bit entries travel two to an int32 word: -0.0 and NaN
+        patterns come back whole."""
+        _, outs = dp_world
+        want = W.GATHER_PROBE.to(torch.bfloat16).view(torch.int16).numpy()
+        for out in outs:
+            np.testing.assert_array_equal(out["gathered_bits_bf16"], want)
+
 
 class TestElasticRestore:
     def test_save_on_4_restore_on_2(self, dp_world):

@@ -51,6 +51,20 @@ def test_sharded_decode_matches_the_single_device_step(world, arch):
     assert ("Shard(dim=1)" in placements) == heads_split
 
 
+def test_no_unkeyed_argument_shapes_a_dtensor_op(world):
+    """DTensor reuses a cached sharding decision, output shape included,
+    for calls that differ only in arguments its key leaves out; each
+    such argument that the decode routes and the split routes pass (the
+    sharded decode, the key- and slot-split decode, the zig-zag forward
+    and gradients, the vocab-parallel lookup) is one that no output's
+    shape depends on (``W.SHAPELESS_UNKEYED``, as for the train step)."""
+    name, outs = world
+    for rank, out in enumerate(outs):
+        unkeyed = {tuple(a) for a in out["unkeyed"]}
+        assert unkeyed <= set(W.SHAPELESS_UNKEYED), \
+            (name, rank, sorted(unkeyed - set(W.SHAPELESS_UNKEYED)))
+
+
 # ---------------------------------------------------------------------------
 # the routes where several ranks share a kv head
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ of the gradient norm.  No all-reduce of the step is as large as a
 rank's vocab share of the f32 logits, over ("model",): the logits stay
 split by vocab, and the stream's all-reduces move (rows, T, d_model).
 No argument that DTensor's sharding cache leaves out of its key shapes
-an op's output.
+an op's output, in the step or in the MoE configs' TP prefill, and no
+op of the step is an accumulating scatter on a DTensor (ROADMAP C10).
 """
 import math
 
@@ -117,33 +118,6 @@ def test_the_pair_carries_the_step(world, arch):
             assert max(sizes) < vocab_share, max(sizes)
 
 
-# Every non-tensor argument of a DTensor op that the step dispatches and
-# that DTensor's sharding cache leaves out of its key
-# (``torch_spmd_workers.unkeyed_args``), with why it cannot decide an
-# output's shape, under torch 2.13 and 2.11 (the last three: 2.11 only).
-# ``aten.topk``'s k was one (ROADMAP C7): ``route`` now takes its top k
-# outside DTensor's propagation.
-SHAPELESS_UNKEYED = {
-    ("aten.floor_divide.default", "other"): "a scalar, elementwise",
-    ("aten.full_like.default", "fill_value"): "the input's shape",
-    ("aten.full_like.default", "pin_memory"): "the input's shape",
-    ("aten.gelu.default", "approximate"): "elementwise",
-    ("aten.gelu_backward.default", "approximate"): "elementwise",
-    ("aten.index_put.default", "accumulate"): "the shape of self",
-    ("aten.new_zeros.default", "device"): "size and dtype are keyed",
-    ("aten.new_zeros.default", "layout"): "size and dtype are keyed",
-    ("aten.new_zeros.default", "pin_memory"): "size and dtype are keyed",
-    ("aten.ones_like.default", "memory_format"): "the input's shape",
-    ("aten.ones_like.default", "pin_memory"): "the input's shape",
-    ("aten.searchsorted.Tensor", "side"): "the values' shape",
-    ("aten.softplus_backward.default", "beta"): "elementwise",
-    ("aten.softplus_backward.default", "threshold"): "elementwise",
-    ("aten.add.Tensor", "other"): "a scalar, elementwise",
-    ("aten.clamp.default", "min"): "a scalar, elementwise",
-    ("aten.pow.Tensor_Scalar", "exponent"): "a scalar, elementwise",
-}
-
-
 @pytest.mark.parametrize("arch", W.PAIR_ARCHS)
 def test_no_unkeyed_argument_shapes_a_dtensor_op(world, arch):
     """DTensor reuses a cached sharding decision, output shape included,
@@ -153,5 +127,67 @@ def test_no_unkeyed_argument_shapes_a_dtensor_op(world, arch):
     name, ranks = world
     for rank, out in enumerate(ranks):
         unkeyed = {tuple(a) for a in out[arch]["unkeyed"]}
-        assert unkeyed <= set(SHAPELESS_UNKEYED), \
-            (name, rank, sorted(unkeyed - set(SHAPELESS_UNKEYED)))
+        assert unkeyed <= set(W.SHAPELESS_UNKEYED), \
+            (name, rank, sorted(unkeyed - set(W.SHAPELESS_UNKEYED)))
+
+
+@pytest.mark.parametrize("arch", W.PAIR_ARCHS)
+def test_no_dtensor_scatter_accumulates(world, arch):
+    """No op of the step is an accumulating ``index_put`` on a DTensor:
+    the card's DTensor (torch 2.11) placed the one that was the backward
+    of ``combine``'s inverse-permutation gather with its values split by
+    rows over "data" and its indices whole, and the MoE configs' step
+    failed its backward on the (2, 2) mesh (ROADMAP C10).  The MoE
+    FFN's moves are gathers and scatters with unique indices whose
+    backwards are again gathers and scatters (``models/ffn.py``)."""
+    name, ranks = world
+    for rank, out in enumerate(ranks):
+        assert out[arch]["accumulating"] == [], (name, rank)
+
+
+@pytest.mark.parametrize("arch", W.PAIR_ARCHS)
+def test_the_head_sums_no_partial_logits(world, arch):
+    """The head's product comes out split by rows and by vocab, never a
+    partial sum: an embedding dim that FSDP splits over "data" (the MoE
+    configs) is gathered on use, where DTensor had left the product's
+    contraction split and summed (B, T, V) partial logits over "data",
+    which on the card's torch all-gathered f32 logits of every row and
+    the whole vocab (ROADMAP C11)."""
+    name, ranks = world
+    for rank, out in enumerate(ranks):
+        heads = out[arch]["head"]
+        assert heads and not any("Partial" in h for h in heads), \
+            (name, rank, heads)
+
+
+@pytest.mark.parametrize("arch", W.PAIR_MOE_ARCHS)
+def test_moe_bf16_output_rounds_once(world, arch):
+    """``moe_forward`` in bf16 on DTensors, as training runs it, within
+    one bf16 ulp of the largest |out| of the single-device one.  Where
+    FSDP splits the experts' contraction over "data", the partial
+    products are summed in f32 and rounded once, as one device rounds
+    its f32 sum once (ROADMAP C11); bf16 partials rounded apiece were 2
+    ulps off here, and 3 on the card at published widths."""
+    name, ranks = world
+    for rank, out in enumerate(ranks):
+        got = out[arch]["ffn_bf16"]
+        top = float(np.abs(got["want"]).max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        err = float(np.abs(got["got"] - got["want"]).max())
+        assert err <= ulp, (name, rank, err / ulp)
+
+
+@pytest.mark.parametrize("arch", W.PAIR_MOE_ARCHS)
+def test_tp_prefill_matches_and_keys_its_shapes(world, arch):
+    """The MoE configs' prefill on DTensors (``forward`` under no_grad,
+    the dry run's prefill route) against the same forward on plain
+    tensors, logits within 1e-5 (f32), and every argument that
+    DTensor's sharding cache leaves out of its key in the table."""
+    name, ranks = world
+    for rank, out in enumerate(ranks):
+        got = out[arch]["prefill"]
+        np.testing.assert_allclose(got["logits"], got["want"], rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{name} rank {rank}")
+        unkeyed = {tuple(a) for a in got["unkeyed"]}
+        assert unkeyed <= set(W.SHAPELESS_UNKEYED), \
+            (name, rank, sorted(unkeyed - set(W.SHAPELESS_UNKEYED)))

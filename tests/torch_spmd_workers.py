@@ -199,9 +199,13 @@ def compressed(rank, mesh, ckpt_dir):
         CheckpointManager(ckpt_dir).save(1, tree, blocking=True)
         odd = device_put(GATHER_PROBE.clone(), sh)
         gathered = odd.full_tensor().view(torch.int32).numpy().copy()
+        # the same values as bf16, two to a gathered int32 word
+        odd16 = device_put(GATHER_PROBE.to(torch.bfloat16), sh)
+        gathered16 = odd16.full_tensor().view(torch.int16).numpy().copy()
     return {"f32": _host(f32), "bf16": _host(c16),
             "f32_dtypes": f32_dtypes, "bf16_dtypes": bf16_dtypes,
-            "steps": steps, "gathered_bits": gathered}
+            "steps": steps, "gathered_bits": gathered,
+            "gathered_bits_bf16": gathered16}
 
 
 def restore(rank, mesh, ckpt_dir):
@@ -276,10 +280,15 @@ def sharded_decode(rank, mesh):
     """One decode step of each ``DECODE_ARCHS`` config
     (:func:`_decode_pair`): granite-8b-smoke's 2 kv heads split over
     "model"; gemma3-1b-smoke's one kv head cannot, so the ranks split
-    its 4 q heads within it.  Under ``"split"``, :func:`split_routes`."""
-    out = {arch: _decode_pair(get_config(arch), mesh, DECODE_B)
-           for arch in DECODE_ARCHS}
-    out["split"] = split_routes(mesh)
+    its 4 q heads within it.  Under ``"split"``, :func:`split_routes`;
+    under ``"unkeyed"``, the DTensor ops' arguments that the sharding
+    cache leaves out of its key (:func:`unkeyed_args`), over both."""
+    sizes = _collective_sizes()
+    with sizes:
+        out = {arch: _decode_pair(get_config(arch), mesh, DECODE_B)
+               for arch in DECODE_ARCHS}
+        out["split"] = split_routes(mesh)
+    out["unkeyed"] = sorted(unkeyed_args(sizes.dtensor_calls))
     return out
 
 
@@ -407,7 +416,41 @@ def scan_blocks(rank, mesh):
 PAIR_ARCHS = ("granite-8b-smoke", "gemma3-1b-smoke", "falcon-mamba-7b-smoke",
               "recurrentgemma-9b-smoke", "deepseek-v2-236b-smoke",
               "llama4-scout-17b-a16e-smoke")
+PAIR_MOE_ARCHS = ("deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke")
 PAIR_B, PAIR_T = 4, 16
+
+
+# Every non-tensor argument of a DTensor op that the SPMD tests' routes
+# dispatch (the train step, the MoE configs' prefill, the sharded and
+# split decode routes) and that DTensor's sharding cache leaves out of
+# its key (:func:`unkeyed_args`), with why it cannot decide an output's
+# shape, under torch 2.13 and 2.11 (the last eight: 2.11 only).
+# ``aten.topk``'s k was one (ROADMAP C7): ``route`` now takes its top k
+# outside DTensor's propagation.
+SHAPELESS_UNKEYED = {
+    ("aten.floor_divide.default", "other"): "a scalar, elementwise",
+    ("aten.full_like.default", "fill_value"): "the input's shape",
+    ("aten.full_like.default", "pin_memory"): "the input's shape",
+    ("aten.gelu.default", "approximate"): "elementwise",
+    ("aten.gelu_backward.default", "approximate"): "elementwise",
+    ("aten.index_put.default", "accumulate"): "the shape of self",
+    ("aten.new_zeros.default", "device"): "size and dtype are keyed",
+    ("aten.new_zeros.default", "layout"): "size and dtype are keyed",
+    ("aten.new_zeros.default", "pin_memory"): "size and dtype are keyed",
+    ("aten.ones_like.default", "memory_format"): "the input's shape",
+    ("aten.ones_like.default", "pin_memory"): "the input's shape",
+    ("aten.searchsorted.Tensor", "side"): "the values' shape",
+    ("aten.softplus_backward.default", "beta"): "elementwise",
+    ("aten.softplus_backward.default", "threshold"): "elementwise",
+    ("aten.add.Tensor", "other"): "a scalar, elementwise",
+    ("aten.clamp.default", "min"): "a scalar, elementwise",
+    ("aten.pow.Tensor_Scalar", "exponent"): "a scalar, elementwise",
+    ("aten.ge.Scalar", "other"): "a scalar, elementwise",
+    ("aten.lt.Scalar", "other"): "a scalar, elementwise",
+    ("aten.mul.Tensor", "other"): "a scalar, elementwise",
+    ("aten.rsub.Scalar", "other"): "a scalar, elementwise",
+    ("aten.clamp.default", "max"): "a scalar, elementwise",
+}
 
 
 _TENSOR = "<tensor>"     # a tensor argument, as a DTensor call keeps it
@@ -446,6 +489,29 @@ def unkeyed_args(calls) -> set:
     return out
 
 
+# the index_put ops that DTensor dispatches (the backward of an
+# advanced-index gather is ``aten.index_put`` with accumulate=True on a
+# tensor subclass); accumulate is argument 3
+_INDEX_PUTS = ("aten.index_put.default", "aten.index_put_.default",
+               "aten._index_put_impl_.default",
+               "aten._unsafe_index_put.default")
+
+
+def accumulating_scatters(calls) -> list:
+    """Of DTensor op calls ``(op, args, kwargs)``, the ``index_put``
+    calls that accumulate, by op name: the card's DTensor (torch 2.11)
+    placed one with its values split by rows and its indices whole
+    (ROADMAP C10)."""
+    out = []
+    for func, args, kwargs in calls:
+        if str(func) not in _INDEX_PUTS:
+            continue
+        acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+        if acc:
+            out.append(str(func))
+    return sorted(out)
+
+
 def _collective_sizes():
     """A dispatch mode that records each functional collective's op
     name and result bytes, as the dry run's counter does; DTensor ops
@@ -482,10 +548,16 @@ def tp_pair(rank, mesh):
     """Each ``PAIR_ARCHS`` config's loss and every master's gradient, the
     masters and the batch placed by the sharding rules on ``mesh``, with
     the functional collectives the step ran (op, result bytes), the
-    calls of the autograd pair's backwards and the DTensor ops'
-    arguments left out of the sharding cache's key
-    (:func:`unkeyed_args`); the single-device step is the test's."""
+    calls of the autograd pair's backwards, the DTensor ops' arguments
+    left out of the sharding cache's key (:func:`unkeyed_args`) and
+    the accumulating scatters it dispatched on DTensors
+    (:func:`accumulating_scatters`); the single-device step is the
+    test's.  Under ``"head"``, the placements of the head's product
+    (what ``_logits`` hands ``constrain``).  An MoE config also runs a
+    TP prefill (:func:`_tp_prefill`) under ``"prefill"`` and its FFN in
+    bf16 (:func:`_moe_bf16`) under ``"ffn_bf16"``."""
     from repro_torch.models import common
+    from repro_torch.models import model as M
 
     calls = {"copy_to_model": 0, "reduce_from_model": 0}
     real = {name: getattr(common, cls).backward
@@ -498,8 +570,18 @@ def tp_pair(rank, mesh):
             return real[name](ctx, g)
         return staticmethod(backward)
 
+    heads = []
+    real_constrain = M.constrain
+
+    def constrain(x, dims):
+        if tuple(dims) == ("batch", None, "vocab") and \
+                hasattr(x, "placements"):
+            heads.append(str(tuple(x.placements)))
+        return real_constrain(x, dims)
+
     common._CopyToModel.backward = counted("copy_to_model")
     common._ReduceFromModel.backward = counted("reduce_from_model")
+    M.constrain = constrain
     out = {}
     try:
         for arch in PAIR_ARCHS:
@@ -509,6 +591,7 @@ def tp_pair(rank, mesh):
             cell = ShapeCell("t", PAIR_T, PAIR_B, "train")
             for k in calls:
                 calls[k] = 0
+            heads.clear()
             sizes = _collective_sizes()
             with sizes:
                 loss, grads = value_and_grad(
@@ -521,12 +604,64 @@ def tp_pair(rank, mesh):
                                    for k, v in named_leaves(grads)},
                          "collectives": sizes.seen, "calls": dict(calls),
                          "unkeyed": sorted(unkeyed_args(
-                             sizes.dtensor_calls))}
+                             sizes.dtensor_calls)),
+                         "accumulating": accumulating_scatters(
+                             sizes.dtensor_calls),
+                         "head": list(heads)}
+            if cfg.ffn_kind == "moe":
+                out[arch]["prefill"] = _tp_prefill(cfg, mesh, batch)
+                out[arch]["ffn_bf16"] = _moe_bf16(cfg, mesh)
     finally:
+        M.constrain = real_constrain
         common._CopyToModel.backward = staticmethod(real["copy_to_model"])
         common._ReduceFromModel.backward = staticmethod(
             real["reduce_from_model"])
     return out
+
+
+def _tp_prefill(cfg, mesh, batch) -> dict:
+    """The prefill (``forward`` under no_grad, as the dry run's prefill
+    cells run it) of ``cfg``'s serving parameters placed by the sharding
+    rules, and on plain tensors: both logits, and the DTensor ops'
+    arguments left out of the sharding cache's key."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    params = init_params(cfg, 0, device="cpu")
+    cell = ShapeCell("p", PAIR_T, PAIR_B, "prefill")
+    with torch.no_grad():
+        want = forward(params, batch["tokens"], cfg)
+        p = device_put(params, param_shardings(model_specs(cfg), cfg, mesh))
+        toks = device_put(batch, batch_shardings(cfg, cell, mesh,
+                                                 batch))["tokens"]
+        sizes = _collective_sizes()
+        with sizes, implicit_replication():
+            got = forward(p, toks, cfg)
+    return {"logits": _host(got), "want": _host(want),
+            "unkeyed": sorted(unkeyed_args(sizes.dtensor_calls))}
+
+
+def _moe_bf16(cfg, mesh) -> dict:
+    """``moe_forward`` in bf16, as training runs it (the weights require
+    grad), on weights placed by ``param_shardings`` (FSDP splits the
+    experts' contraction over "data" where the mesh has one) and rows
+    split over the data axes, and on plain tensors: both outputs (as
+    f32)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import ffn as F
+    from repro_torch.models.common import materialize_params
+
+    p = materialize_params(F.moe_specs(cfg), 0, torch.bfloat16,
+                           torch.device("cpu")).requires_grad_(True)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((PAIR_B, PAIR_T, cfg.d_model), generator=gen).to(
+        torch.bfloat16)
+    want = F.moe_forward(p, x, cfg, torch.bfloat16)
+    pd = device_put(p, param_shardings(F.moe_specs(cfg), cfg, mesh))
+    xd = device_put(x, NamedSharding(mesh, (data_axes(mesh),)))
+    with implicit_replication():
+        got = F.moe_forward(pd, xd, cfg, torch.bfloat16)
+    return {"got": _host(got), "want": _host(want)}
 
 
 # deepseek-v2-smoke (top 2), llama4-scout-smoke (top 1), then
