@@ -142,6 +142,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -3834,6 +3835,73 @@ def m_moe_rows(cfg, device, dtype, seed: int):
                        device=device, dtype=torch.float32).to(dtype)
 
 
+# the functional collectives that DTensor and the port call, and the op
+# the dry run's counter books each as (roofline.COLLECTIVE_OPS' names)
+M_COMM_CALLS = {"all_gather_tensor": "all-gather",
+                "all_gather_single": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_single": "reduce-scatter",
+                "all_reduce": "all-reduce",
+                "all_to_all_single": "all-to-all"}
+
+
+@contextlib.contextmanager
+def m_comm_counts():
+    """Within the context, each functional collective that DTensor or
+    the port calls in this process, as (op, result bytes) in the list it
+    yields: named and sized as the dry run's counter books it, counted
+    where it is called, so before ``gloo_collectives_over_all_reduce``
+    runs it as all-reduces (a collective called inside another counts
+    once).  DTensor's shard-to-shard redistribution counts as an
+    all-to-all, as the dry run counts it."""
+    import torch.distributed.tensor._collective_utils as cu
+    import torch.distributed.tensor.placement_types as pt
+    from torch.distributed import _functional_collectives as funcol
+
+    calls, depth = [], [0]
+
+    def counted(fn, op):
+        def call(*args, **kwargs):
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                calls.append((op, out.numel() * out.element_size()))
+            return out
+        return call
+
+    targets = [(funcol, name, op) for name, op in M_COMM_CALLS.items()
+               if hasattr(funcol, name)]
+    targets += [(m, "shard_dim_alltoall", "all-to-all") for m in (cu, pt)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in targets]
+    for m, name, op in targets:
+        setattr(m, name, counted(getattr(m, name), op))
+    try:
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def m_comm_summary(calls) -> dict:
+    """(op, bytes) calls as {op: [calls, bytes, largest]}."""
+    out = {}
+    for op, nbytes in calls:
+        n, total, most = out.get(op, (0, 0, 0))
+        out[op] = [n + 1, total + nbytes, max(most, nbytes)]
+    return out
+
+
+def m_comm_line(summary: dict) -> str:
+    """A rank's collectives of one step, by op."""
+    total = sum(v[1] for v in summary.values())
+    ops = "; ".join(f"{op} {n} x, {b:,} B (largest {most:,})"
+                    for op, (n, b, most) in sorted(summary.items()))
+    return f"collectives {total:,} B: {ops or 'none'}"
+
+
 def m_tp_moe_steps():
     """M6's steps in order: (label, arch, dtype, limit of max |err| as a
     fraction of max |out|, the ("data", "model") mesh's shape)."""
@@ -3918,7 +3986,7 @@ def m_tp_moe(devs, dev, refs) -> list:
             torch.cuda.reset_peak_memory_stats(dev)
         m_sync(dev)
         t0 = time.perf_counter()
-        with implicit_replication():
+        with implicit_replication(), m_comm_counts() as calls:
             y, route, r = m_moe_route(pd, xd, cfg, getattr(torch, dtype))
         m_sync(dev)
         seconds = time.perf_counter() - t0
@@ -3934,7 +4002,8 @@ def m_tp_moe(devs, dev, refs) -> list:
             max_err=float((y.reshape(ref_y.shape).float()
                            - ref_y.float()).abs().max()),
             ref_max=float(ref_y.float().abs().max()),
-            seconds=seconds, peak=m_peak(dev)))
+            seconds=seconds, peak=m_peak(dev),
+            comm=m_comm_summary(calls)))
         del pd, xd, y, r
         gc.collect()
         torch.cuda.empty_cache()
@@ -4638,9 +4707,10 @@ def m7_rank(rank, mesh, cfg_m, refs):
         params = device_put(init_params(cfg, 0, dev, masters=True),
                             param_shardings(model_specs(cfg), cfg, mesh))
         t0 = start()
-        loss, grads = value_and_grad(
-            params, device_put(batch, batch_shardings(cfg, cell, mesh,
-                                                      batch)), cfg)
+        with m_comm_counts() as calls:
+            loss, grads = value_and_grad(
+                params, device_put(batch, batch_shardings(cfg, cell, mesh,
+                                                          batch)), cfg)
         got = {k: _m7_host(v).numpy() for k, v in named_leaves(grads)}
         seconds = time.perf_counter() - t0
 
@@ -4664,7 +4734,8 @@ def m7_rank(rank, mesh, cfg_m, refs):
             loss=full(loss), want_loss=want_loss, gnorm=norm(got),
             want_gnorm=norm(want), worst=worst,
             zero=zero / (M7_ZERO_RTOL * norm(want)),
-            keys_equal=sorted(got) == sorted(want), seconds=seconds)
+            keys_equal=sorted(got) == sorted(want), seconds=seconds,
+            comm=m_comm_summary(calls))
         del params, loss, grads, got
     free()
 
@@ -4681,13 +4752,14 @@ def m7_rank(rank, mesh, cfg_m, refs):
     held = sum(v.to_local().numel() * 4 for _, v in named_leaves(masters))
     FK.reset_launches()
     t0 = start()
-    loss, grads = value_and_grad(masters, batch, cfg)
+    with m_comm_counts() as calls:
+        loss, grads = value_and_grad(masters, batch, cfg)
     with implicit_replication():
         gnorm = full(global_norm(grads))
     loss = full(loss)
     m_sync(dev)
     out["a"] = dict(loss=loss, gnorm=gnorm, seconds=time.perf_counter() - t0,
-                    peak=m_peak(dev), held=held,
+                    peak=m_peak(dev), held=held, comm=m_comm_summary(calls),
                     flash=FK.LAUNCHES["flash_attention"],
                     placements=str(tuple(
                         named_leaves(masters)[0][1].placements)))
@@ -4708,7 +4780,7 @@ def m7_rank(rank, mesh, cfg_m, refs):
     wd = device_put(w.reshape(2, -1, cfg.d_model), rows)
     del x, w
     t0 = start()
-    with implicit_replication():
+    with implicit_replication(), m_comm_counts() as calls:
         y, r, grads = m7_ffn_grads(p, xd, wd, cfg, torch.bfloat16)
     m_sync(dev)
     seconds = time.perf_counter() - t0
@@ -4735,7 +4807,7 @@ def m7_rank(rank, mesh, cfg_m, refs):
         kept=int(route["keep"].sum()), max_err=float(
             (y.float() - ref["out"].float()).abs().max()),
         ref_max=float(ref["out"].float().abs().max()), errs=errs,
-        seconds=seconds, peak=peak)
+        seconds=seconds, peak=peak, comm=m_comm_summary(calls))
     del p, xd, wd, y, r, grads
     free()
     progress("done")
@@ -4759,6 +4831,9 @@ def m7_check(outs, refs, smi: str) -> None:
                   <= M_GNORM_RTOL * c["want_gnorm"]
                   and c["keys_equal"] and c["worst"] <= 1
                   and c["zero"] <= 1)
+            if rank == 0:
+                log(f"M7 (c) {arch} rank 0: {m_comm_line(c['comm'])} "
+                    f"[{smi}]")
             if not ok:
                 raise AssertionError(f"M7 (c) {arch} rank {rank}: {c}")
         a = o["a"]
@@ -4775,6 +4850,8 @@ def m7_check(outs, refs, smi: str) -> None:
             f"{a['placements']}, peak {a['peak'] / 1e9:.2f} GB (single "
             f"device {ref_a['peak'] / 1e9:.2f}); flash_attention launched "
             f"{a['flash']} times [{smi}]")
+        if rank == 0:
+            log(f"M7 (a) rank 0: {m_comm_line(a['comm'])} [{smi}]")
         if not (abs(a["loss"] - ref_a["loss"]) <= M_LOSS_RTOL * ref_a["loss"]
                 and abs(a["gnorm"] - ref_a["gnorm"])
                 <= M_GNORM_RTOL * ref_a["gnorm"]):
@@ -4797,6 +4874,8 @@ def m7_check(outs, refs, smi: str) -> None:
             f"{b['seconds']:.2f} s (single device "
             f"{refs['ffn']['seconds']:.2f} s), peak {b['peak'] / 1e9:.2f} GB "
             f"[{smi}]")
+        if rank == 0:
+            log(f"M7 (b) rank 0: {m_comm_line(b['comm'])} [{smi}]")
         if not (all(b["routes_equal"].values())
                 and b["max_err"] <= M_MOE_RTOL * b["ref_max"]
                 and ulps[worst] <= M7_GRAD_ULPS):
@@ -4982,6 +5061,9 @@ def m_spmd(cuda, smi: str) -> dict:
                 split = m6["local"][0] * m6["mesh"][0] == m6["shape"][0] \
                     and (m6["mesh"][0] == 1
                          or "Shard(dim=0)" in m6["placements"])
+                if r == 0:
+                    log(f"M6 ({m6['label']}) rank 0: "
+                        f"{m_comm_line(m6['comm'])} [{smi}]")
                 if not (all(m6["routes_equal"].values()) and split
                         and m6["max_err"] <= m6["limit"] * m6["ref_max"]):
                     raise AssertionError(f"M6 rank {r}: {m6}")

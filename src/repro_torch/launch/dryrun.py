@@ -51,7 +51,14 @@ What :class:`StepCounter` counts, per device (rank 0's local shards):
     ``roofline.collective_bytes_from_ops`` under the JAX package's op
     names, and the largest of each op (``collective_largest``: an
     all-gather as large as a cache or table shard is one that gathers
-    it).
+    it).  DTensor's shard-to-shard redistribution counts as the
+    all-to-all a card's process group runs (:func:`fake_world`); the
+    MoE layer's all-to-alls move the rows of a balanced route, as a
+    fake route has no values (:func:`_balanced_moe_route`; each MoE
+    report says so under ``moe_route``).  Every
+    layer is counted, so the totals compare with the JAX package's
+    ``collective_bytes_per_device``, not with its per-op dict, which
+    counts a scanned layer body once.
   * ``memory.peak_bytes_per_device_est``: the high-water mark of the
     live bytes of rank 0's storages (inputs, and every op's outputs
     until they are freed); an estimate, as the JAX package's is.
@@ -69,6 +76,7 @@ destroys it when it returns.  Reports go to ``reports/dryrun_torch/``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -78,6 +86,7 @@ from contextlib import ExitStack, contextmanager
 from dataclasses import replace as dc_replace
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -275,9 +284,123 @@ def _uncounted_propagation(counter: StepCounter):
 # the fake world
 # ---------------------------------------------------------------------------
 @contextmanager
+def _shard_to_shard_as_all_to_all():
+    """Inside the context, DTensor redistributes Shard(i) to Shard(j)
+    over a mesh dim by ``funcol.all_to_all_single``, as it does on a
+    card's process group: on a CPU mesh it all-gathers the whole tensor
+    and keeps a chunk (and says so in a warning), which the counter
+    would book as an all-gather of mesh-size times the bytes.  Raises
+    when this torch has no ``shard_dim_alltoall`` to replace."""
+    import torch.distributed.tensor._collective_utils as cu
+    import torch.distributed.tensor.placement_types as pt
+    from torch.distributed import _functional_collectives as funcol
+
+    missing = [m.__name__ for m in (cu, pt)
+               if not hasattr(m, "shard_dim_alltoall")]
+    if missing:
+        raise RuntimeError(f"torch {torch.__version__}: no "
+                           f"shard_dim_alltoall in {missing} to count as "
+                           f"an all-to-all")
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        # DTensor pads the local shard so that the split dim divides:
+        # every rank's block has this rank's block's shape
+        n = mesh.size(mesh_dim)
+        parts = torch.tensor_split(input, n, dim=shard_dim)
+        block = parts[0].shape
+        send = torch.cat([p.reshape(-1) for p in parts])
+        out = funcol.all_to_all_single(send, [parts[0].numel()] * n,
+                                       [p.numel() for p in parts],
+                                       (mesh, mesh_dim))
+        if isinstance(out, funcol.AsyncCollectiveTensor):
+            out = out.wait()
+        return torch.cat([b.view(block) for b in out.split(
+            parts[0].numel())], dim=gather_dim)
+
+    saved = [(m, m.shard_dim_alltoall) for m in (cu, pt)]
+    for m, _ in saved:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.shard_dim_alltoall = fn
+
+
+def _balanced_pair_counts(r, e: int, lo: int, n_e: int, rows, caps
+                          ) -> list:
+    """``models/ffn.py::_pair_counts`` for a fake route, which has no
+    values: the counts of a balanced route (entry ``t * k + c`` to
+    expert ``(t * k + c) % E``, which drops none), the traffic of a
+    router that spreads its tokens evenly."""
+    s, k = r.top_idx.shape
+    return _balanced_counts(int(s), int(k), e, r.capacity, lo, n_e,
+                            tuple(rows), tuple(caps))
+
+
+@functools.lru_cache(maxsize=64)
+def _balanced_counts(s: int, k: int, e: int, cap: int, lo: int, n_e: int,
+                     rows: tuple, caps: tuple) -> list:
+    # expert x's r-th entry is entry x + e * r, token (x + e * r) // k
+    rank = np.arange(cap)[:, None]
+    entry = np.arange(lo, lo + n_e)[None, :] + e * rank
+    held = entry < s * k
+    src = np.searchsorted([b for b, _ in rows], entry // k, side="right") - 1
+    dst = np.searchsorted([b for b, _ in caps], rank, side="right") - 1
+    n_t = len(rows)
+    key = (src * n_t + np.broadcast_to(dst, entry.shape))[held]
+    return np.bincount(key, minlength=n_t * n_t).reshape(n_t, n_t).tolist()
+
+
+@contextmanager
+def _balanced_moe_route():
+    """Inside the context the MoE layer's all-to-all split sizes are a
+    balanced route's (:func:`_balanced_pair_counts`): a fake route has
+    no values to read them from."""
+    from ..models import ffn
+
+    real = ffn._pair_counts
+    ffn._pair_counts = _balanced_pair_counts
+    try:
+        yield
+    finally:
+        ffn._pair_counts = real
+
+
+@contextmanager
+def _meshes_flattened_outside_the_trace():
+    """Inside the context a mesh that the step flattens (the MoE layer's
+    all-to-alls run over "pod" and "data" flattened) is made outside the
+    fake mode and the counter: its tensor of ranks is a real one, and
+    making it is not the step's work."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    real = DeviceMesh._flatten
+
+    def flatten(self, *args, **kwargs):
+        with _disable_current_modes():
+            return real(self, *args, **kwargs)
+
+    DeviceMesh._flatten = flatten
+    try:
+        yield
+    finally:
+        DeviceMesh._flatten = real
+
+
+# a report's note on the MoE layer's all-to-all bytes
+BALANCED_ROUTE = ("the MoE layer's all-to-all bytes are a balanced "
+                  "router's: entry t * k + c to expert (t * k + c) % E, "
+                  "none dropped")
+
+
+@contextmanager
 def fake_world(n_ranks: int):
-    """This process as rank 0 of a fake process group of ``n_ranks``;
-    the group is destroyed on exit."""
+    """This process as rank 0 of a fake process group of ``n_ranks``,
+    where DTensor's shard-to-shard redistributions are all-to-alls
+    (:func:`_shard_to_shard_as_all_to_all`); the group is destroyed on
+    exit."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -287,9 +410,31 @@ def fake_world(n_ranks: int):
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=n_ranks)
     try:
-        yield
+        with _shard_to_shard_as_all_to_all():
+            yield
     finally:
         dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Clears what DTensor caches by mesh: its sharding decisions and
+    redistribution plans hold the mesh they were made on, and a mesh of
+    the next world in this process equals this one's, so they would hand
+    it this world's meshes and, through a flattened mesh (``models/
+    ffn.py`` flattens "pod" and "data"), groups that no longer exist."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute as R
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for clear in (getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                          None),
+                  getattr(prop.propagate_op_sharding, "cache_clear", None),
+                  getattr(R, "clear_redistribute_planner_cache", None),
+                  getattr(getattr(R, "_gen_transform_infos", None),
+                          "cache_clear", None)):
+        if clear is not None:
+            clear()
 
 
 def fake_device_type() -> str:
@@ -462,6 +607,8 @@ def trace_step(cfg: ArchConfig, cell: ShapeCell, n_ranks: int,
             axes["moe_ep"] = (batch_axes, "model")
         if axes:
             stack.enter_context(activation_sharding(mesh, **axes))
+        stack.enter_context(_balanced_moe_route())
+        stack.enter_context(_meshes_flattened_outside_the_trace())
         stack.enter_context(FakeTensorMode())
         fn, args = lower_cell(
             cfg, cell, mesh, dmesh,
@@ -544,6 +691,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
             "tokens_per_step": tokens,
             "step_kind": cell.step,
         })
+        if cfg.ffn_kind == "moe" and not options.get("moe_ep"):
+            result["moe_route"] = BALANCED_ROUTE
         result["roofline"] = roofline_terms(result, DEVICE)
     except Exception as e:
         result["status"] = "error"

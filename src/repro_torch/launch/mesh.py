@@ -179,7 +179,8 @@ def _code_names(module) -> set:
 @contextlib.contextmanager
 def gloo_collectives_over_all_reduce():
     """Inside the context, DTensor's all-gathers, reduce-scatters and
-    all-to-alls in this process run as all-reduces.
+    all-to-alls in this process, and the functional all-to-alls of the
+    port's MoE layer (``models/ffn.py``), run as all-reduces.
 
     gloo takes CUDA tensors for ``all_reduce`` and ``broadcast``, but
     DTensor's functional all-gather of CUDA tensors over gloo crashed
@@ -191,14 +192,18 @@ def gloo_collectives_over_all_reduce():
     position has one nonzero term; a reduce-scatter is an all-reduce
     followed by the rank's slice; a shard-to-shard all-to-all is that
     all-gather followed by the rank's chunk, as DTensor already does on
-    CPU meshes.  Twice the bytes of the collective it replaces (16-bit
+    CPU meshes; an all-to-all of rows with split sizes is an all-reduce
+    of every rank's split sizes, then that all-gather of every rank's
+    rows (padded to the most any rank sends) and the rank's slices of
+    it.  Twice the bytes of the collective it replaces (16-bit
     entries travel as int32 words of two entries where the last dim is
     even, else each widened to an int32).
 
     Raises RuntimeError, rather than run DTensor's own collectives, when
     DTensor's placements call no all-gather or no reduce-scatter it
     replaces, or a functional collective it does not replace (a torch
-    release that renamed one)."""
+    release that renamed one), or when a function it replaces is
+    missing."""
     import torch.distributed.tensor._collective_utils as cu
     import torch.distributed.tensor.placement_types as pt
     from torch.distributed import _functional_collectives as funcol
@@ -266,17 +271,38 @@ def gloo_collectives_over_all_reduce():
             return out.narrow(shard_dim, 0, 0).contiguous()
         return parts[r].contiguous()
 
+    def all_to_all_single(self, output_split_sizes, input_split_sizes,
+                          group, tag=""):
+        n, r = pg_of(group, tag).size(), pg_of(group, tag).rank()
+        even = [self.shape[0] // n] * n
+        send = list(input_split_sizes or even)
+        table = torch.zeros((n, n), dtype=torch.int64, device=self.device)
+        table[r] = torch.tensor(send, device=self.device)
+        table = reduce(table, "sum", group, tag).tolist()
+        if [row[r] for row in table] != list(output_split_sizes or even):
+            raise RuntimeError(f"all_to_all_single: rank {r}'s split sizes "
+                               f"disagree with its peers' ({table})")
+        most = max(sum(row) for row in table)
+        padded = self.new_zeros((most,) + tuple(self.shape[1:]))
+        padded[:self.shape[0]] = self
+        every = gather(padded, 0, group, tag)
+        return torch.cat([every.narrow(0, s * most + sum(table[s][:r]),
+                                       table[s][r]) for s in range(n)])
+
     # the placements must call an all-gather and a reduce-scatter this
     # context replaces, and no other functional collective (a torch
     # release that renamed one is refused rather than run unreplaced)
     called = {n for n in _code_names(pt) | _code_names(cu)
               if _COLLECTIVE.match(n) and hasattr(funcol, n)}
-    problems = sorted(called - set(_GATHERS + _SCATTERS))
+    problems = sorted(called - set(_GATHERS + _SCATTERS
+                                   + ("all_to_all_single",)))
     problems += [f"no call of any of {names}" for names in (_GATHERS,
                                                             _SCATTERS)
                  if not called & set(names)]
     problems += [f"{m.__name__}.shard_dim_alltoall missing" for m in (cu, pt)
                  if not hasattr(m, "shard_dim_alltoall")]
+    if not hasattr(funcol, "all_to_all_single"):
+        problems.append("funcol.all_to_all_single missing")
     if problems:
         raise RuntimeError(
             f"gloo_collectives_over_all_reduce cannot route the DTensor "
@@ -284,7 +310,8 @@ def gloo_collectives_over_all_reduce():
     targets = [(funcol, n, gather) for n in _GATHERS if hasattr(funcol, n)] \
         + [(funcol, n, reduce_scatter) for n in _SCATTERS
            if hasattr(funcol, n)] \
-        + [(m, "shard_dim_alltoall", alltoall) for m in (cu, pt)]
+        + [(m, "shard_dim_alltoall", alltoall) for m in (cu, pt)] \
+        + [(funcol, "all_to_all_single", all_to_all_single)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
     for m, n, fn in targets:
         setattr(m, n, fn)

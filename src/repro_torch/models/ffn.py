@@ -18,20 +18,30 @@ experts (DeepSeek) are a fused dense SwiGLU of width
 n_shared * d_ff_expert.  Plain torch: no Pallas kernel computes the
 MoE in the JAX package either.
 
-On an SPMD rank, under ``activation_sharding(mesh, moe_ep=(token_axes,
-model_axis))``, :func:`ffn_forward` takes the expert-parallel
-:func:`moe_forward_ep`: each rank runs its E/m experts on its own
-tokens and one all-reduce over the model axis sums the partial outputs.
+On DTensors (an SPMD rank, the dry run) :func:`moe_forward` routes as
+on one device and then steps out of DTensor: each rank keeps the entries
+of its own rows that go to its expert group, feeds the group's experts
+by an all-to-all of entries or a reduce-scatter of the group's capacity
+(:func:`_routed_on_ranks`), and each row's k contributions are summed
+in choice order on one rank of the model axis; the JAX package's
+partitioner makes the same crossing an all-to-all.  Under
+``activation_sharding(mesh, moe_ep=(token_axes, model_axis))``,
+:func:`ffn_forward` takes the expert-parallel :func:`moe_forward_ep`
+instead: each rank runs its E/m experts on its own tokens with a
+capacity counted from them, and one all-reduce over the model axis sums
+the partial outputs.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, _is_dtensor, copy_to_model, row_parallel
+from .common import (ParamSpec, _is_dtensor, _placed, copy_to_model,
+                     gathered_on_use, row_parallel, shard_range)
 from .config import ArchConfig
 
 
@@ -272,95 +282,480 @@ def combine(contrib: torch.Tensor, order: torch.Tensor, s: int, k: int,
     return _choice_sum(_Permute.apply(contrib, inv, order), k)
 
 
-def _whole_capacity(t: torch.Tensor) -> torch.Tensor:
-    """``t`` of (E, C, d), and its gradient, with the capacity dim
-    gathered where a DTensor splits it; anything else as it is.  DTensor
-    flattens a split inner dim into a strided shard, whose row offsets
-    it computes from a tensor that a fake tensor cannot read; the
-    (E, C, d) <-> (E * C, d) slot reshapes (and their gradients) would
-    hit that."""
-    return _WholeCapacity.apply(t) if _is_dtensor(t) else t
-
-
-def _gather_dim1(t):
-    from torch.distributed.tensor import Replicate, Shard
-
-    pls = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
-           for pl in t.placements]
-    return t if pls == list(t.placements) else \
-        t.redistribute(t.device_mesh, pls)
-
-
-class _WholeCapacity(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t):
-        return _gather_dim1(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _gather_dim1(g)
-
-
-def _expert_product(x: torch.Tensor, w: torch.Tensor, dtype
-                    ) -> torch.Tensor:
-    """``torch.bmm(x, w)`` of (E, C, d) rows and (E, d, f) weights.
-    In training, where a mesh dim splits a DTensor weight's contraction
-    dim d (FSDP's "embed" over "data"), the product is taken in f32, so
-    that its partial sums are summed in f32 and rounded once to
-    ``dtype``, as one device's product sums its whole contraction in f32
-    and rounds once: partials rounded to bf16 apiece put deepseek-v2's
-    MoE output on a (2, 2) mesh 3 bf16 ulps off one device's (an H100,
-    published widths).  The partial sums are reduce-scattered over f,
-    where DTensor places a bf16 product's, so that what follows is
-    placed as it would be.  Forward-only routes (prefill, decode) keep
-    the bf16 product: an f32 copy of the weights a step would cost a
-    decode step more than its few rows gain."""
-    if not (_is_dtensor(w) and w.requires_grad
-            and torch.is_grad_enabled() and any(
-            pl.is_shard(1) and w.device_mesh.size(i) > 1
-            for i, pl in enumerate(w.placements))):
-        return torch.bmm(x, w)
-    from torch.distributed.tensor import Shard
-
-    out = torch.bmm(x.float(), w.float())
-    out = out.redistribute(out.device_mesh, [
-        Shard(2) if pl.is_partial() else pl for pl in out.placements])
-    return out.to(dtype)
-
-
 def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                 ) -> torch.Tensor:
     b, t, d = x.shape
     s = b * t
-    e, k = cfg.n_experts, cfg.top_k
-    # the flattened tokens feed the experts' products; their gradient is
-    # placed as they are, split along the tokens as the rows were (256
-    # rows do not split over a 512-rank flattening)
+    # the flattened tokens feed the router, the experts and the shared
+    # expert; their gradient is placed as they are, split along the
+    # tokens as the rows were (256 rows do not split over a 512-rank
+    # flattening)
     xf = copy_to_model(x.reshape(s, d))
     r = route(cfg, xf @ p["router"])
-    cap = r.capacity
-    keep = r.keep[:, None].to(dtype)
+    arrived = None
+    if _is_dtensor(xf):
+        arrived, xf = xf.placements, _token_rows(xf, p["w1"])
+    routed = _routed_on_ranks if _is_dtensor(xf) else _routed
+    out = routed(p, xf, r, cfg, dtype)
+    if cfg.n_shared_experts:
+        # in training FSDP's split of the shared expert's d is gathered
+        # on use: left to itself, DTensor may gather the rows instead
+        shared = {n: gathered_on_use(p["shared"][n])
+                  for n in ("w1", "w3", "w2")}
+        out = out + dense_forward(shared, xf, dtype)
+    if arrived is not None and tuple(arrived) != tuple(xf.placements):
+        out = _stream_of(out, arrived, p["w1"])
+    return out.reshape(b, t, d)
 
+
+def _token_rows(xf: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """DTensor rows ``xf`` (S, d) split by rows over the mesh dims that
+    split them by rows or by d and do not split the experts (the token
+    dims), and whole over every other: what the routed experts take.  A
+    decode step's stream may arrive as partial sums or split by d."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xf.device_mesh
+    return _placed(xf, mesh, [
+        Shard(0) if isinstance(pl, Shard) and not (
+            isinstance(w, Shard) and w.dim != 1) else Replicate()
+        for pl, w in zip(xf.placements, w1.placements)])
+
+
+def _stream_of(out: torch.Tensor, arrived, w1: torch.Tensor
+               ) -> torch.Tensor:
+    """The MoE output ``out`` (S, d) for a stream that arrived placed as
+    ``arrived``, not split by rows alone (a decode step's): split by d
+    over every mesh dim that splits the expert weights, by rows over the
+    others that split the rows.  The next layer's products, whose
+    weights FSDP splits by d over "data", then take every row's slice
+    of d, where a stream split by rows over "data" and whole over
+    "model" has each "model" rank compute its "data" block's products
+    whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = out.device_mesh
+    return _placed(out, mesh, [
+        Shard(1) if isinstance(w, Shard) and mesh.size(i) > 1
+        else Shard(0) if pl == Shard(0) else Replicate()
+        for i, (pl, w) in enumerate(zip(arrived, w1.placements))])
+
+
+def _routed(p, xf: torch.Tensor, r: Routing, cfg: ArchConfig, dtype
+            ) -> torch.Tensor:
+    """The routed experts' output for one device's (S, d) rows."""
+    s, d = xf.shape
+    e, k, cap = cfg.n_experts, cfg.top_k, r.capacity
+    keep = r.keep[:, None].to(dtype)
     # token -> slot scatter; every dropped entry lands, zeroed, in the
-    # dump row E * capacity, which is cut off.  Out of place: DTensor has
-    # no strategy for the in-place index_put_ in some torch versions
-    # (2.11), and places the out-of-place one in every version
+    # dump row E * capacity, which is cut off
     inv = torch.argsort(r.order)
     buf = xf.new_zeros((e * cap + 1, d), dtype=dtype).index_put(
         (r.slot,), _TokenEntries.apply(xf, r.sorted_tok, inv, k) * keep)
-    expert_in = _whole_capacity(buf[:-1].reshape(e, cap, d))
-
-    h = F.silu(_expert_product(expert_in, p["w1"], dtype)) * \
-        _expert_product(expert_in, p["w3"], dtype)
-    out_e = _whole_capacity(torch.bmm(h, p["w2"])).reshape(e * cap, d)
-
+    expert_in = buf[:-1].reshape(e, cap, d)
+    h = F.silu(torch.bmm(expert_in, p["w1"])) * \
+        torch.bmm(expert_in, p["w3"])
+    out_e = torch.bmm(h, p["w2"]).reshape(e * cap, d)
     gathered = _FromSlots.apply(out_e, r.slot, keep)
     gates = _Permute.apply(r.top_vals.reshape(s * k), r.order, inv)
-    contrib = gathered * gates[:, None].to(dtype)
-    out = combine(contrib, r.order, s, k, inv)
-    if cfg.n_shared_experts:
-        out = out + dense_forward(p["shared"], xf, dtype)
-    return out.reshape(b, t, d)
+    return combine(gathered * gates[:, None].to(dtype), r.order, s, k, inv)
+
+
+# ---------------------------------------------------------------------------
+# the routed experts on an SPMD rank
+# ---------------------------------------------------------------------------
+# On DTensors the step's rows (S, d) stay split over the mesh dims that
+# split them (the token dims: "data", or "pod" and "data") and whole over
+# "model"; the expert weights are split over "model" by experts (or by
+# their ffn dim where the experts do not divide), and FSDP splits their
+# d over "data".  Rank (i, j) (i on the token dims, j on "model") holds
+# its rows and every entry's global slot (the route is replicated), and
+# keeps the entries of its own rows that go to its expert group j.  A
+# reduce-scatter over "model" then hands each rank all k contributions
+# of its share of the rows (each lies on one group's rank), summed in
+# choice order as on one device, and an all-gather joins the rows.  No
+# rank holds the step's rows or every expert's output.  (A decode step's
+# stream, which may arrive as partial sums or split by d, is first split
+# by rows: :func:`_token_rows`, :func:`_stream_of`.)  Two ways to feed
+# the group's experts, chosen by the bytes each moves
+# (:func:`feed_bytes`):
+#
+#   * slot blocks: the group's capacity rows are split over the token
+#     dims, each rank multiplying its block by the group's weights whole
+#     (gathered over FSDP's dims on use, their gradient reduce-scattered
+#     back); each entry goes to the rank of its slot and comes back
+#     through an all-to-all over the token dims whose split sizes are
+#     read from the route.  The weights move, the tokens barely: the
+#     prefill and training steps of a pod;
+#   * embed blocks: every rank of the group takes all of its capacity
+#     rows but only the d columns of its FSDP block (a reduce-scatter of
+#     the entries over the token dims), multiplies them by its block of
+#     the weights, sums the partial products over FSDP's dims (in f32 in
+#     training, as one device rounds its f32 sum once) and gathers the
+#     output's columns back.  The weights stay, the group's capacity
+#     moves: decode, and steps of a few thousand rows.
+def _routed_on_ranks(p, xf, r: Routing, cfg: ArchConfig, dtype):
+    """The routed experts' output of DTensor rows ``xf`` (S, d), placed
+    as ``xf`` is: the forward of :func:`_routed` on an SPMD rank, the
+    same route, the same kept entries in the same slots."""
+    from torch.distributed.tensor import Partial, Shard
+
+    mesh, w1 = xf.device_mesh, p["w1"]
+    s, d = xf.shape
+    k, cap = cfg.top_k, r.capacity
+    tok = [i for i, pl in enumerate(xf.placements)
+           if pl == Shard(0) and mesh.size(i) > 1]
+    split = [i for i, pl in enumerate(w1.placements)
+             if isinstance(pl, Shard) and pl.dim != 1 and mesh.size(i) > 1]
+    fsdp = [i for i, pl in enumerate(w1.placements)
+            if pl == Shard(1) and mesh.size(i) > 1]
+    if set(split) & set(tok) or tok and split and max(tok) > min(split):
+        raise ValueError(f"MoE rows split over mesh dims {tok}, experts "
+                         f"over {split}: the rows' dims must come first")
+    lo, n_e = shard_range(w1, 0)
+    f_l = shard_range(w1, 2)[1]
+
+    counts = [mesh.size(i) for i in tok]
+    rows = _blocks(s, counts)
+    f = 0
+    for i in tok:
+        f = f * mesh.size(i) + mesh.get_local_rank(i)
+    t0, s_l = rows[f]
+    order, slot, keep = (_whole(t) for t in (r.order, r.slot, r.keep))
+    own = torch.argsort(order)[t0 * k:(t0 + s_l) * k]
+    slot_o = slot[own]
+    ex = slot_o // cap
+    row = slot_o - ex * cap
+    mine = keep[own] & (ex >= lo) & (ex < lo + n_e)
+
+    # the rows and gates of the rank's own entries, (token, choice)
+    # order; their gradient is the group's share: partial over "model"
+    grad_pls = [Shard(0) if i in tok else Partial() if i in split else pl
+                for i, pl in enumerate(xf.placements)]
+    xl = xf.to_local(grad_placements=grad_pls).to(dtype)
+    gates = _placed(r.top_vals, mesh, xf.placements).to_local(
+        grad_placements=grad_pls).reshape(s_l * k)
+    entries = xl if k == 1 else _TokenEntries.apply(
+        xl, torch.arange(s_l * k, device=xl.device) // k,
+        torch.arange(s_l * k, device=xl.device), k)
+
+    grad = torch.is_grad_enabled() and w1.requires_grad
+    if not fsdp or _by_slot_blocks(
+            n_e, cap, d, f_l, w1.dtype.itemsize,
+            math.prod(mesh.size(i) for i in tok),
+            math.prod(mesh.size(i) for i in fsdp), grad):
+        feed = _slot_blocks
+    else:
+        feed = _embed_blocks
+    gathered = feed(p, entries, mesh, tok, fsdp, r, cfg.n_experts,
+                    (lo, n_e, ex, row, mine), rows, f)
+    return _RowSums.apply(gathered * gates[:, None].to(dtype), k, mesh,
+                          tuple(split), (s, d), tuple(xf.placements))
+
+
+def feed_bytes(n_e: int, cap: int, d: int, f_l: int, itemsize: int,
+               n_tok: int, n_fsdp: int, grad: bool) -> tuple:
+    """The collective bytes a rank of an expert group of ``n_e`` experts
+    (capacity ``cap``, width ``d``, the rank's ``f_l`` of the ffn dim,
+    weights of ``itemsize`` bytes) receives in one MoE layer when the
+    group is fed by slot blocks and by embed blocks: each collective's
+    result on the rank, as the dry run's counter books it, forward and,
+    where a gradient is taken (``grad``), backward; the tokens split
+    ``n_tok`` ways, FSDP's d ``n_fsdp`` ways, a balanced route.
+
+    Slot blocks gather the group's three (n_e, d, f) weights whole and
+    send the rank's share of the capacity rows, (n_e * C / n_tok, d),
+    to their ranks and back; the backward reduce-scatters the weights'
+    gradient and sends the rows' gradient both ways.  Embed blocks
+    reduce-scatter the group's capacity rows (n_e * C, d) by d, sum two
+    (n_e, C, f) partial products (f32 where a gradient is taken) and
+    gather the output's d; the backward reduce-scatters the output's
+    gradient, sums the product's and gathers the input's."""
+    rows = n_e * cap * d * itemsize
+    weights = 3 * n_e * d * f_l * itemsize
+    partial = n_e * cap * f_l
+    slot = weights + 2 * rows // n_tok
+    embed = rows // n_fsdp + 2 * partial * (4 if grad else itemsize) + rows
+    if grad:
+        slot += weights // n_fsdp + 2 * rows // n_tok
+        embed += rows // n_fsdp + partial * itemsize + rows
+    return slot, embed
+
+
+def _by_slot_blocks(*sizes) -> bool:
+    """Whether slot blocks move fewer bytes than embed blocks
+    (:func:`feed_bytes` of ``sizes``)."""
+    slot, embed = feed_bytes(*sizes)
+    return slot < embed
+
+
+def _blocks(size: int, counts) -> list:
+    """(first, length) of each rank's block of ``size`` rows split over
+    mesh dims of ``counts`` ranks in turn (``torch.chunk``'s split, as
+    DTensor nests it), in the ranks' row-major order."""
+    out = [(0, size)]
+    for n in counts:
+        nxt = []
+        for first, length in out:
+            chunk = -(-length // n)
+            for c in range(n):
+                lo = min(c * chunk, length)
+                nxt.append((first + lo, min(length - lo, chunk)))
+        out = nxt
+    return out
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a local tensor; ``t`` otherwise."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _embed_blocks(p, entries, mesh, tok, fsdp, r, e, where, *_):
+    """Each rank's own entries' expert rows (zeros for the others), the
+    group's capacity fed by embed blocks (see above)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    lo, n_e, ex, row, mine = where
+    cap, d = r.capacity, entries.shape[1]
+    at = torch.where(mine, (ex - lo) * cap + row,
+                     torch.full_like(row, n_e * cap))
+    buf = entries.new_zeros((n_e * cap + 1, d)).index_put((at,), entries)
+    summed = {i: Partial() for i in tok}
+    cols = {i: Shard(1) for i in fsdp}
+    partial = {i: Partial() for i in fsdp}
+    ein = _Moved.apply(buf[:-1], mesh, (n_e * cap, d), (summed, cols),
+                       (cols, {}))
+    ein = ein.reshape(n_e, cap, -1)
+    w1, w3, w2 = (p[n].to_local() for n in ("w1", "w3", "w2"))
+    dtype = entries.dtype
+    f32 = torch.is_grad_enabled() and p["w1"].requires_grad
+    hs = []
+    for w in (w1, w3):
+        h = torch.bmm(ein.float(), w.float()) if f32 else torch.bmm(ein, w)
+        hs.append(_Moved.apply(h, mesh, tuple(h.shape), (partial, {}),
+                               ({}, {})).to(dtype))
+    h = F.silu(hs[0]) * hs[1]
+    h = _Moved.apply(h, mesh, tuple(h.shape), ({}, {}), (partial, {}))
+    out_e = torch.bmm(h, w2).reshape(n_e * cap, -1)
+    out_e = _Moved.apply(out_e, mesh, (n_e * cap, d), (cols, {}),
+                         (summed, cols))
+    return _FromSlots.apply(out_e, at, mine[:, None].to(dtype))
+
+
+def _slot_blocks(p, entries, mesh, tok, fsdp, r, e, where, rows, f):
+    """Each rank's own entries' expert rows (zeros for the others), the
+    group's capacity fed by slot blocks (see above)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    lo, n_e, ex, row, mine = where
+    n_t, d, cap = len(rows), entries.shape[1], r.capacity
+    dev = entries.device
+    caps = _blocks(cap, [mesh.size(i) for i in tok])
+    first = torch.tensor([b for b, _ in caps], device=dev)
+    length = torch.tensor([n for _, n in caps], device=dev)
+    dst = torch.searchsorted(first, row, right=True) - 1
+    # the entries sent, by destination: the group's kept ones
+    order = torch.argsort(torch.where(mine, dst, n_t), stable=True)
+    pairs = _pair_counts(r, e, lo, n_e, rows, caps)
+    send, recv = pairs[f], [pairs[i][f] for i in range(n_t)]
+    idx = order[:sum(send)]
+    at = (ex[idx] - lo) * length[dst[idx]] + row[idx] - first[dst[idx]]
+    group = _token_group(mesh, tok)
+    sent = _Take.apply(entries, idx)
+    got = _AllToAll.apply(sent, send, recv, group)
+    at = _all_to_all(at, send, recv, group)
+    n_l = caps[f][1]
+    ein = got.new_zeros((n_e * n_l, d)).index_put((at,), got)
+    ein = ein.reshape(n_e, n_l, d)
+
+    def whole(w):
+        pls = [Replicate() if i in fsdp else pl
+               for i, pl in enumerate(w.placements)]
+        return _LocalBlock.apply(w, tuple(pls), tuple(
+            Partial() if i in tok else pl for i, pl in enumerate(pls)))
+
+    w1, w3, w2 = (whole(p[n]) for n in ("w1", "w3", "w2"))
+    h = F.silu(torch.bmm(ein, w1)) * torch.bmm(ein, w3)
+    out_e = torch.bmm(h, w2).reshape(n_e * n_l, d)
+    back = _AllToAll.apply(_Take.apply(out_e, at), recv, send, group)
+    return back.new_zeros((entries.shape[0], d)).index_put((idx,), back)
+
+
+def _pair_counts(r: Routing, e: int, lo: int, n_e: int, rows, caps
+                 ) -> list:
+    """``out[i][j]``: how many of the group's kept entries the rank of
+    token block i sends to the rank of slot block j, read from the
+    route (one read back to the host)."""
+    slot, cap = _whole(r.slot), r.capacity
+    n_t = len(rows)
+    dev = slot.device
+    ex = slot // cap
+    mask = _whole(r.keep) & (ex >= lo) & (ex < lo + n_e)
+    src = torch.searchsorted(torch.tensor([b for b, _ in rows], device=dev),
+                             _whole(r.sorted_tok), right=True) - 1
+    dst = torch.searchsorted(torch.tensor([b for b, _ in caps], device=dev),
+                             slot - ex * cap, right=True) - 1
+    key = torch.where(mask, src * n_t + dst, n_t * n_t)
+    return torch.bincount(key, minlength=n_t * n_t + 1)[:-1].view(
+        n_t, n_t).tolist()
+
+
+def _token_group(mesh, tok):
+    """The group of the token dims ``tok`` for a functional collective
+    (the flattened sub-mesh where there are two); None where no mesh dim
+    splits the tokens."""
+    if not tok:
+        return None
+    if len(tok) == 1:
+        return (mesh, tok[0])
+    names = mesh.mesh_dim_names
+    return (mesh[tuple(names[i] for i in tok)]._flatten(), 0)
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def _all_to_all(t: torch.Tensor, send, recv, group) -> torch.Tensor:
+    """``send[j]`` rows of ``t`` to rank j of ``group``, in rank order;
+    the result holds ``recv[i]`` rows from rank i, in rank order."""
+    if group is None:
+        return t
+    from torch.distributed import _functional_collectives as funcol
+
+    return _ready(funcol.all_to_all_single(t.contiguous(), list(recv),
+                                           list(send), group))
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all` of rows; the backward sends each row's
+    gradient back to the rank the row came from."""
+
+    @staticmethod
+    def forward(ctx, t, send, recv, group):
+        ctx.back = (recv, send, group)
+        return _all_to_all(t, send, recv, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.back), None, None, None
+
+
+class _Take(torch.autograd.Function):
+    """``t[idx]`` for unique indices ``idx``; the backward puts each
+    row's gradient back in its own row, with no accumulation."""
+
+    @staticmethod
+    def forward(ctx, t, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = t.shape[0]
+        return t[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return g.new_zeros((ctx.n,) + tuple(g.shape[1:])).index_put(
+            (idx,), g), None
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= n
+    return tuple(reversed(stride))
+
+
+def _move(t: torch.Tensor, mesh, shape, src: dict, dst: dict
+          ) -> torch.Tensor:
+    """Local tensor ``t`` placed on ``mesh`` as ``src`` says (mesh dim
+    -> placement, Replicate on every other dim), of global ``shape``,
+    redistributed to ``dst``: the rank's local result."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if src == dst:
+        return t
+    pls = [src.get(i, Replicate()) for i in range(mesh.ndim)]
+    whole = DTensor.from_local(t.contiguous(), mesh, pls, run_check=False,
+                               shape=tuple(shape),
+                               stride=_contiguous_stride(shape))
+    return _ready(whole.redistribute(mesh, [
+        dst.get(i, Replicate()) for i in range(mesh.ndim)]).to_local())
+
+
+class _Moved(torch.autograd.Function):
+    """:func:`_move` of a local tensor of global ``shape`` from
+    ``fwd[0]`` to ``fwd[1]``, and of its gradient from ``bwd[0]`` to
+    ``bwd[1]``.  The caller names both
+    pairs: only it knows where a rank's values or gradient are partial
+    sums."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, shape, fwd, bwd):
+        ctx.args = (mesh, shape) + tuple(bwd)
+        return _move(t, mesh, shape, *fwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _move(g, *ctx.args), None, None, None, None
+
+
+class _LocalBlock(torch.autograd.Function):
+    """The rank's block of DTensor ``w`` placed as ``pls``.  The
+    backward takes the block's gradient as placed by ``grad_pls`` (a
+    partial sum where the rank multiplied only its rows) and hands it
+    back placed as ``w`` is."""
+
+    @staticmethod
+    def forward(ctx, w, pls, grad_pls):
+        ctx.w = (w.device_mesh, tuple(w.placements), w.shape, w.stride())
+        ctx.grad_pls = grad_pls
+        return _ready(_placed(w, w.device_mesh, pls).to_local())
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        mesh, pls, shape, stride = ctx.w
+        out = DTensor.from_local(g.contiguous(), mesh, ctx.grad_pls,
+                                 run_check=False, shape=shape, stride=stride)
+        return _placed(out, mesh, pls), None, None
+
+
+class _RowSums(torch.autograd.Function):
+    """The rank's rows' k contributions (S_l * k, d), in (token, choice)
+    order, summed in choice order into a DTensor of global ``shape``
+    placed as ``pls``.  An entry's contribution lies on the rank of its
+    expert's group alone (zeros elsewhere), so a reduce-scatter over the
+    ``split`` mesh dims by rows hands each rank all k contributions of
+    its share of the rows, exact; it sums them as one device sums them,
+    and an all-gather joins the rows.  Each contribution's gradient is
+    its row's, which every rank of the ``split`` dims holds: the
+    backward moves nothing."""
+
+    @staticmethod
+    def forward(ctx, contrib, k, mesh, split, shape, pls):
+        from torch.distributed.tensor import DTensor, Partial, Shard
+
+        ctx.k, ctx.mesh, ctx.pls = k, mesh, pls
+        s_l, d = contrib.shape[0] // k, contrib.shape[1]
+        by_rows = {i: Shard(0) for i in split}
+        rows = _move(contrib.reshape(s_l, k, d), mesh, (s_l, k, d),
+                     {i: Partial() for i in split}, by_rows)
+        out = _choice_sum(rows.reshape(-1, d), k)
+        whole = DTensor.from_local(
+            out, mesh, [by_rows.get(i, pl) for i, pl in enumerate(pls)],
+            run_check=False, shape=shape, stride=_contiguous_stride(shape))
+        return _placed(whole, mesh, pls)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _ready(_placed(g, ctx.mesh, ctx.pls).to_local())
+        return (g.repeat_interleave(ctx.k, dim=0), None, None, None, None,
+                None)
 
 
 def _local(t: torch.Tensor, mesh_dims: Dict[str, int]):

@@ -87,11 +87,21 @@ def test_llama4_scout_decode_cell():
 def test_deepseek_v2_prefill_cell():
     """MLA attends through the plain attention on each rank's heads, as
     the JAX package's does: no kernel call; its products are counted on
-    the rank's 2 rows and 8 of 128 heads, causal over 32,768 tokens."""
+    the rank's 2 rows and 8 of 128 heads, causal over 32,768 tokens.
+    The MoE layers move entries by all-to-all, gather no "model" rank's
+    share of the expert rows, keep the parent's flops within 1.01 and
+    move at most half its collective bytes (the parent gathered the
+    (160 x 49,153, 5,120) expert rows in each of the 59 MoE layers:
+    6,016,437,288,960 B a device, 2.86 times the JAX package's
+    2,107,272,177,920; the change's are 0.11 of the JAX package's)."""
     from repro_torch.configs import get_config
+    from test_torch_dryrun_moe_split import check_split_moe
 
     cfg = get_config("deepseek-v2-236b")
     r = _port_cell("deepseek-v2-236b", "prefill_32k")
+    check_split_moe(r, "deepseek-v2-236b", 847_622_931_087_360)
+    assert r["collective_bytes_per_device"] <= 0.5 * 6_016_437_288_960
+    assert r["collective_bytes_per_device"] < 2_107_272_177_920
     assert r["kernel_calls"] == {}
     t, heads, rows = 32768, cfg.n_heads // 16, 32 // 16
     d_qk = cfg.qk_nope_dim + cfg.qk_rope_dim
@@ -104,7 +114,42 @@ def test_deepseek_v2_prefill_cell():
     assert r["tokens_per_step"] == 32 * 32768 and r["step_kind"] == "prefill"
 
 
+def test_deepseek_v2_decode_cells():
+    """The MoE layers of a decode step take the stream as it arrives
+    (partial sums over "model", then split by d) and hand their output
+    back split by d over "data" and "model" (``ffn._stream_of``), as
+    the parent's read-back of every expert's output left it: the next
+    layer's MLA input products then run on every row's slice of d.  A
+    stream split by rows alone had each "model" rank compute its "data"
+    block's products whole, 1.03 times the parent's flops.  Flops a
+    device at most the parent's (340,343,193,600 on ``pod16x16``,
+    176,261,529,600 on ``pod2x16x16``), collective bytes too
+    (624,572,672 and 303,603,360)."""
+    procs = [_start_cell("deepseek-v2-236b", "decode_32k", multi_pod=mp)
+             for mp in (False, True)]
+    single, multi = (_finish_cell(p, chips) for p, chips in
+                     zip(procs, (256, 512)))
+    for r, flops, coll in ((single, 340_343_193_600, 624_572_672),
+                           (multi, 176_261_529_600, 303_603_360)):
+        assert r["step_kind"] == "decode" and r["tokens_per_step"] == 128
+        assert r["flops_per_device"] <= flops, r["flops_per_device"]
+        assert r["collective_bytes_per_device"] <= coll, \
+            r["collective_bytes_per_device"]
+        assert "all-to-all" in r["collectives"]
+
+
 TRAIN_CELLS = ("llama4-scout-17b-a16e", "deepseek-v2-236b")
+# pod2x16x16 train_4k: the parent's (flops, collective bytes) a device,
+# the JAX package's collective bytes, and the largest share of the
+# parent's bytes the change may move
+MULTI_PARENT = {
+    "llama4-scout-17b-a16e": (424_312_653_742_080, 5_848_802_002_960),
+    "deepseek-v2-236b": (706_758_726_647_808, 23_468_974_913_808),
+}
+MULTI_JAX_BYTES = {"llama4-scout-17b-a16e": 2_190_822_297_204,
+                   "deepseek-v2-236b": 5_622_037_168_044}
+MULTI_BYTES_RATIO = {"llama4-scout-17b-a16e": 0.75,
+                     "deepseek-v2-236b": 0.5}
 
 
 @pytest.fixture(scope="module")
@@ -128,8 +173,18 @@ def test_multi_pod_train_cell(multi_pod_train_cells, arch):
     (deepseek-v2's plain attention multiplies the whole 4,096-token
     square over 128 heads of 320 dims, about twice the parameters'
     flops), the recomputed blocks and the experts' slack capacity add
-    the rest."""
+    the rest.  The MoE layers move entries by all-to-all, gather no
+    "model" rank's share of the expert rows, keep the parent's flops
+    within 1.01 and move at most 0.75 (llama4-scout) / 0.5 (deepseek-v2)
+    of its collective bytes; the parent's were 2.67 / 4.17 times the
+    JAX package's totals, the change's are 0.12 / 0.08 of them."""
+    from test_torch_dryrun_moe_split import check_split_moe
+
     r = multi_pod_train_cells[arch]
+    flops, coll = MULTI_PARENT[arch]
+    check_split_moe(r, arch, flops)
+    assert r["collective_bytes_per_device"] <= MULTI_BYTES_RATIO[arch] * coll
+    assert r["collective_bytes_per_device"] < MULTI_JAX_BYTES[arch]
     assert r["step_kind"] == "train" and r["tokens_per_step"] == 256 * 4096
     model = 6 * r["params_active"] * r["tokens_per_step"] / 512
     assert model < r["flops_per_device"] < 8 * model

@@ -206,3 +206,33 @@ def test_moe_forward_on_dtensors_matches_the_reference(world_routes, call,
         np.testing.assert_allclose(got["out"], want, rtol=TOL,
                                    atol=TOL * float(np.abs(want).max()),
                                    err_msg=f"{arch} rank {rank}")
+
+
+@pytest.mark.parametrize("feed", W.FEEDS)
+@pytest.mark.parametrize("call", range(len(W.ROUTE_CALLS)))
+def test_each_feed_matches_the_reference(world_routes, call, feed):
+    """Each call again with its expert groups fed each way
+    (``torch_spmd_workers.forced_feed``): slot blocks exchange the
+    entries by an all-to-all over "data" and multiply the group's
+    weights gathered over FSDP's "data"; embed blocks reduce-scatter
+    the group's capacity by d.  Both within the limits above of the JAX
+    package's ``moe_forward``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as j_get_config
+    from repro.models import ffn as JF
+
+    weights, rows, ranks = world_routes
+    arch, cf = W.ROUTE_CALLS[call]
+    jcfg = replace(j_get_config(arch), capacity_factor=cf)
+    want = np.asarray(JF.moe_forward(jax.tree.map(jnp.asarray,
+                                                  weights[call]),
+                                     jnp.asarray(rows[call]), jcfg,
+                                     jnp.float32))
+    for rank, per_call in enumerate(ranks):
+        got = per_call[call]["feeds"][feed]
+        assert got["fed"] == [feed], (arch, rank, got["fed"])
+        np.testing.assert_allclose(got["out"], want, rtol=TOL,
+                                   atol=TOL * float(np.abs(want).max()),
+                                   err_msg=f"{arch} rank {rank} {feed}")

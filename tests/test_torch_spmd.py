@@ -397,6 +397,19 @@ class TestGradCompression:
         for out in outs:
             np.testing.assert_array_equal(out["gathered_bits_bf16"], want)
 
+    def test_all_to_all_over_all_reduce_is_bitwise(self, dp_world):
+        """The MoE layer's all-to-all of rows with split sizes, as
+        ``gloo_collectives_over_all_reduce`` runs it (an all-reduce of
+        the split sizes, then the gather over all-reduces), returns
+        gloo's own all-to-all bit for bit, uneven splits, -0.0 and NaN
+        patterns included."""
+        _, outs = dp_world
+        for rank, out in enumerate(outs):
+            assert out["all_to_all_bits"].size
+            np.testing.assert_array_equal(out["all_to_all_bits_routed"],
+                                          out["all_to_all_bits"],
+                                          err_msg=f"rank {rank}")
+
 
 class TestElasticRestore:
     def test_save_on_4_restore_on_2(self, dp_world):

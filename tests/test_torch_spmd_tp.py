@@ -76,27 +76,57 @@ def _norm(grads) -> float:
                          for g in grads.values()))
 
 
+def _assert_step_matches(got, want_loss, want, arch, where):
+    """A rank's loss and gradients against the single-device step's, at
+    M2's limits and the per-leaf rule above."""
+    assert abs(got["loss"] - want_loss) <= LOSS_RTOL * want_loss, where
+    assert abs(_norm(got["grads"]) - _norm(want)) <= \
+        GNORM_RTOL * _norm(want), where
+    assert sorted(got["grads"]) == sorted(want)
+    for key, g in got["grads"].items():
+        if _zero_gradient(get_config(arch), key):
+            # both sides are rounding: far below the step's norm
+            assert max(float(np.abs(g).max()), float(np.abs(
+                want[key]).max())) <= 1e-6 * _norm(want), (where, key)
+            continue
+        scale = float(np.abs(want[key]).max())
+        np.testing.assert_allclose(g, want[key], rtol=0,
+                                   atol=GNORM_RTOL * scale,
+                                   err_msg=f"{where} {key}")
+
+
 @pytest.mark.parametrize("arch", W.PAIR_ARCHS)
 def test_tp_step_matches_the_single_device_step(world, single_device, arch):
     name, ranks = world
     want_loss, want = single_device[arch]
     for rank, out in enumerate(ranks):
-        got = out[arch]
-        assert abs(got["loss"] - want_loss) <= LOSS_RTOL * want_loss, \
-            (name, rank)
-        assert abs(_norm(got["grads"]) - _norm(want)) <= \
-            GNORM_RTOL * _norm(want), (name, rank)
-        assert sorted(got["grads"]) == sorted(want)
-        for key, g in got["grads"].items():
-            if _zero_gradient(get_config(arch), key):
-                # both sides are rounding: far below the step's norm
-                assert max(float(np.abs(g).max()), float(np.abs(
-                    want[key]).max())) <= 1e-6 * _norm(want), (name, key)
-                continue
-            scale = float(np.abs(want[key]).max())
-            np.testing.assert_allclose(g, want[key], rtol=0,
-                                       atol=GNORM_RTOL * scale,
-                                       err_msg=f"{name} rank {rank} {key}")
+        _assert_step_matches(out[arch], want_loss, want, arch,
+                             f"{name} rank {rank}")
+
+
+@pytest.mark.parametrize("feed", W.FEEDS)
+@pytest.mark.parametrize("arch", W.PAIR_MOE_ARCHS)
+def test_each_moe_feed_matches_the_single_device_step(world, single_device,
+                                                      arch, feed):
+    """The MoE configs' step with the expert groups fed each way
+    (``ffn._slot_blocks``, ``ffn._embed_blocks``; which one a layer takes
+    follows the sizes, and these rows pick embed blocks), loss and every
+    gradient leaf at the limits above.  On the (2, 2) world slot blocks
+    send each entry to the "data" rank of its capacity row by an
+    all-to-all and back, and multiply the group's weights gathered over
+    FSDP's "data", whose gradient each rank holds for its own capacity
+    rows only (a partial sum over "data"); embed blocks reduce-scatter
+    the group's capacity by d and sum f32 partial products.  The (2,)
+    world's FSDP splits no expert weight, so slot blocks run there
+    either way."""
+    name, ranks = world
+    want_loss, want = single_device[arch]
+    for rank, out in enumerate(ranks):
+        got = out[arch]["feeds"][feed]
+        assert got["fed"] == [feed if name == "data2_model2" else "slot"], \
+            (name, rank, got["fed"])
+        _assert_step_matches(got, want_loss, want, arch,
+                             f"{name} rank {rank} {feed}")
 
 
 @pytest.mark.parametrize("arch", W.PAIR_ARCHS)
@@ -191,3 +221,36 @@ def test_tp_prefill_matches_and_keys_its_shapes(world, arch):
         unkeyed = {tuple(a) for a in got["unkeyed"]}
         assert unkeyed <= set(W.SHAPELESS_UNKEYED), \
             (name, rank, sorted(unkeyed - set(W.SHAPELESS_UNKEYED)))
+
+
+def _capacity(cfg, s: int) -> int:
+    """The expert capacity of ``s`` rows, as ``ffn.route`` counts it."""
+    return min(s, int((s * cfg.top_k / cfg.n_experts)
+                      * cfg.capacity_factor) + 1)
+
+
+@pytest.mark.parametrize("arch", W.PAIR_MOE_ARCHS)
+def test_moe_layer_gathers_no_expert_rows_or_tokens(world, arch):
+    """No collective of the MoE configs' TP MoE layer, forward and
+    backward in bf16 as training runs it, has a result shaped as every
+    expert's capacity rows, (E * C, d) or (E, C, d), and on the (2, 2)
+    world, whose ranks hold half the rows, none shaped as the step's
+    rows, (B * T, d) or (B, T, d): each rank keeps the entries of its
+    own rows that go to its expert group, and each row's contributions
+    are summed on one rank of "model"; the shared expert's FSDP-split
+    weights are gathered on use.  Reading every expert's output back at
+    each entry's slot had gathered the (E * C, d) rows on every rank,
+    and the shared expert the step's rows (ROADMAP C12)."""
+    name, ranks = world
+    cfg = get_config(arch)
+    s, d = W.PAIR_B * W.PAIR_T, cfg.d_model
+    cap = _capacity(cfg, s)
+    banned = {(cfg.n_experts * cap, d), (cfg.n_experts, cap, d)}
+    if name == "data2_model2":
+        banned |= {(s, d), (W.PAIR_B, W.PAIR_T, d)}
+    for rank, out in enumerate(ranks):
+        shapes = [(op, tuple(shape)) for op, shape
+                  in out[arch]["ffn_bf16"]["collective_shapes"]]
+        assert shapes, (name, rank)
+        assert not [c for c in shapes if c[1] in banned], \
+            (name, rank, sorted({c for c in shapes if c[1] in banned}))

@@ -6,11 +6,13 @@ returns host values (numpy arrays, floats) to the test, which holds
 them against the JAX package.  The module imports torch and the port
 only: spawned ranks import it, and never JAX.
 """
+import contextlib
 from dataclasses import replace
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed import _functional_collectives as funcol
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
@@ -139,8 +141,10 @@ def compressed(rank, mesh, ckpt_dir):
     ``COMP_STEPS`` compressed train steps of gemma3-1b-smoke on this
     rank's slice of the batches of seeds 0, 1, ..., with this rank's f32
     gradient, the carried error feedback and the parameters after each;
-    the bits of a sharded f32 tensor gathered over all-reduces; and a
-    save of a data-sharded tree for the elastic restore."""
+    the bits of a sharded f32 tensor gathered over all-reduces; rows
+    exchanged by gloo's own all-to-all and by the all-reduce route, with
+    uneven split sizes; and a save of a data-sharded tree for the
+    elastic restore."""
     groups = [device_mesh(mesh).get_group(a) for a in data_axes(mesh)]
     seen = []
     real = dist.all_reduce
@@ -202,10 +206,21 @@ def compressed(rank, mesh, ckpt_dir):
         # the same values as bf16, two to a gathered int32 word
         odd16 = device_put(GATHER_PROBE.to(torch.bfloat16), sh)
         gathered16 = odd16.full_tensor().view(torch.int16).numpy().copy()
+    # rank r sends (r + j) % 3 rows to rank j, and so receives as many
+    rows = (GATHER_PROBE.reshape(8, 2) + rank).to(torch.bfloat16)
+    splits = [(rank + j) % 3 for j in range(mesh.size)]
+    rows = rows[:sum(splits)]
+    group = (device_mesh(mesh), 0)
+    own = funcol.all_to_all_single(rows, splits, splits, group).wait()
+    with gloo_collectives_over_all_reduce():
+        routed = funcol.all_to_all_single(rows, splits, splits, group)
     return {"f32": _host(f32), "bf16": _host(c16),
             "f32_dtypes": f32_dtypes, "bf16_dtypes": bf16_dtypes,
             "steps": steps, "gathered_bits": gathered,
-            "gathered_bits_bf16": gathered16}
+            "gathered_bits_bf16": gathered16,
+            "all_to_all_bits": own.view(torch.int16).numpy().copy(),
+            "all_to_all_bits_routed":
+                routed.view(torch.int16).numpy().copy()}
 
 
 def restore(rank, mesh, ckpt_dir):
@@ -514,10 +529,11 @@ def accumulating_scatters(calls) -> list:
 
 def _collective_sizes():
     """A dispatch mode that records each functional collective's op
-    name and result bytes, as the dry run's counter does; DTensor ops
-    are handed back to DTensor, whose local ops then reach the mode.
-    Each DTensor op call is kept in ``dtensor_calls`` (op, non-tensor
-    arguments) for :func:`unkeyed_args`."""
+    name and result bytes, as the dry run's counter does (``seen``), and
+    its result's shape (``shapes``); DTensor ops are handed back to
+    DTensor, whose local ops then reach the mode.  Each DTensor op call
+    is kept in ``dtensor_calls`` (op, non-tensor arguments) for
+    :func:`unkeyed_args`."""
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -525,6 +541,7 @@ def _collective_sizes():
         def __init__(self):
             super().__init__()
             self.seen = []
+            self.shapes = []
             self.dtensor_calls = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -539,6 +556,7 @@ def _collective_sizes():
             name = func._overloadpacket.__name__
             if func.namespace == "_c10d_functional" and name != "wait_tensor":
                 self.seen.append((name, out.numel() * out.element_size()))
+                self.shapes.append((name, tuple(out.shape)))
             return out
 
     return Sizes()
@@ -551,7 +569,8 @@ def tp_pair(rank, mesh):
     calls of the autograd pair's backwards, the DTensor ops' arguments
     left out of the sharding cache's key (:func:`unkeyed_args`) and
     the accumulating scatters it dispatched on DTensors
-    (:func:`accumulating_scatters`); the single-device step is the
+    (:func:`accumulating_scatters`) and the shape of each collective's
+    result (``"collective_shapes"``); the single-device step is the
     test's.  Under ``"head"``, the placements of the head's product
     (what ``_logits`` hands ``constrain``).  An MoE config also runs a
     TP prefill (:func:`_tp_prefill`) under ``"prefill"`` and its FFN in
@@ -603,6 +622,7 @@ def tp_pair(rank, mesh):
                          "grads": {k: _host(v)
                                    for k, v in named_leaves(grads)},
                          "collectives": sizes.seen, "calls": dict(calls),
+                         "collective_shapes": sizes.shapes,
                          "unkeyed": sorted(unkeyed_args(
                              sizes.dtensor_calls)),
                          "accumulating": accumulating_scatters(
@@ -611,12 +631,60 @@ def tp_pair(rank, mesh):
             if cfg.ffn_kind == "moe":
                 out[arch]["prefill"] = _tp_prefill(cfg, mesh, batch)
                 out[arch]["ffn_bf16"] = _moe_bf16(cfg, mesh)
+                out[arch]["feeds"] = {
+                    feed: _step_fed_by(feed, lambda: value_and_grad(
+                        device_put(params, param_shardings(
+                            model_specs(cfg), cfg, mesh)),
+                        device_put(batch, batch_shardings(
+                            cfg, cell, mesh, batch)), cfg))
+                    for feed in FEEDS}
     finally:
         M.constrain = real_constrain
         common._CopyToModel.backward = staticmethod(real["copy_to_model"])
         common._ReduceFromModel.backward = staticmethod(
             real["reduce_from_model"])
     return out
+
+
+# the two ways ``models/ffn.py`` feeds an expert group on DTensors
+FEEDS = ("slot", "embed")
+
+
+@contextlib.contextmanager
+def forced_feed(feed: str):
+    """Inside the context the MoE layer on DTensors takes ``feed``
+    wherever it can choose (``ffn._by_slot_blocks``; slot blocks only
+    where FSDP splits no expert weight); yields the list of the feeds
+    that ran, one entry a layer call."""
+    from repro_torch.models import ffn as F
+
+    fed = []
+    real = {f: getattr(F, f"_{f}_blocks") for f in FEEDS}
+    saved = F._by_slot_blocks
+
+    def spy(f):
+        return lambda *a: fed.append(f) or real[f](*a)
+
+    F._by_slot_blocks = lambda *a: feed == "slot"
+    for f in FEEDS:
+        setattr(F, f"_{f}_blocks", spy(f))
+    try:
+        yield fed
+    finally:
+        F._by_slot_blocks = saved
+        for f in FEEDS:
+            setattr(F, f"_{f}_blocks", real[f])
+
+
+def _step_fed_by(feed: str, step) -> dict:
+    """``step()`` (a loss and its gradient tree) with the MoE layer fed
+    by ``feed``: the loss, every leaf's gradient and the feeds that
+    ran."""
+    with forced_feed(feed) as fed:
+        loss, grads = step()
+    return {"loss": float(_host(loss)),
+            "grads": {k: _host(v) for k, v in named_leaves(grads)},
+            "fed": sorted(set(fed))}
 
 
 def _tp_prefill(cfg, mesh, batch) -> dict:
@@ -645,7 +713,8 @@ def _moe_bf16(cfg, mesh) -> dict:
     grad), on weights placed by ``param_shardings`` (FSDP splits the
     experts' contraction over "data" where the mesh has one) and rows
     split over the data axes, and on plain tensors: both outputs (as
-    f32)."""
+    f32), and the shape of each collective's result in the DTensor
+    layer's forward and backward (``"collective_shapes"``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models import ffn as F
@@ -659,9 +728,14 @@ def _moe_bf16(cfg, mesh) -> dict:
     want = F.moe_forward(p, x, cfg, torch.bfloat16)
     pd = device_put(p, param_shardings(F.moe_specs(cfg), cfg, mesh))
     xd = device_put(x, NamedSharding(mesh, (data_axes(mesh),)))
-    with implicit_replication():
+    xd.requires_grad_(True)
+    sizes = _collective_sizes()
+    with implicit_replication(), sizes:
         got = F.moe_forward(pd, xd, cfg, torch.bfloat16)
-    return {"got": _host(got), "want": _host(want)}
+        torch.autograd.grad(got.float().sum(),
+                            [xd] + [v for _, v in named_leaves(pd)])
+    return {"got": _host(got), "want": _host(want),
+            "collective_shapes": sizes.shapes}
 
 
 # deepseek-v2-smoke (top 2), llama4-scout-smoke (top 1), then
@@ -683,7 +757,8 @@ def moe_routes(rank, mesh, weights, rows):
     (B, T, d) split over the data axes.  Returns each call's output and
     its route (``top_idx``, ``top_vals``, ``sorted_tok``, ``keep``,
     ``slot``), gathered, with the shapes and placements of the route's
-    DTensors."""
+    DTensors, and under ``"feeds"`` the call's output again with each of
+    ``FEEDS`` forced (:func:`forced_feed`) and the feeds that ran."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models import ffn as F
@@ -704,9 +779,16 @@ def moe_routes(rank, mesh, weights, rows):
         finally:
             F.route = real
         r, = seen
+        feeds = {}
+        for feed in FEEDS:
+            with forced_feed(feed) as fed, torch.no_grad(), \
+                    implicit_replication():
+                feeds[feed] = {"out": _host(F.moe_forward(
+                    p, xd, cfg, torch.float32)), "fed": sorted(set(fed))}
         fields = ("top_idx", "top_vals", "sorted_tok", "keep", "slot")
         out.append({
             "arch": arch, "out": _host(y), "capacity": r.capacity,
+            "feeds": feeds,
             **{f: _host(getattr(r, f)) for f in fields},
             "shapes": {f: (tuple(getattr(r, f).shape),
                            tuple(getattr(r, f).to_local().shape),
