@@ -3439,6 +3439,13 @@ M_CFG = dict(
     m7_pairs=("granite-8b-smoke", "gemma3-1b-smoke",       # M7 (c)
               "falcon-mamba-7b-smoke", "recurrentgemma-9b-smoke",
               "deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke"),
+    # M7 (d): batch-1 decode on ("pod", "data", "model") = (2, 1, 2) at
+    # published widths, (arch, layers): gemma3-1b five local layers and
+    # one global, recurrentgemma-9b two RG-LRU and one attention,
+    # falcon-mamba-7b two Mamba; slots cut from long_500k's 524,288
+    m7_decode=dict(archs=(("gemma3-1b", 6), ("recurrentgemma-9b", 3),
+                          ("falcon-mamba-7b", 2)),
+                   slots=32768, steps=4),
     device_type="cuda")                # every SPMD tensor lives there
 # M6 (c): one shape of router logits, (moe_tokens, 8), routed at top 2
 # and then at top 1 in the same world (DTensor's sharding cache keys
@@ -4479,6 +4486,15 @@ M7_PAIR_BATCH = (4, 16)              # the CPU tests' PAIR_B, PAIR_T
 # single-device side rounds once: at most 4 ulps apart
 M7_GRAD_ULPS = 4
 M7_ZERO_RTOL = 1e-6                  # (c): a top-1 router's zero gradient
+# (d): a second DeviceMesh over the same 4 ranks, ("pod", "data",
+# "model") = (2, 1, 2), as a batch of one leaves "pod" and "data" free.
+# Logits (and each kernel call's q) within M_MOE_RTOL of max |logits| a
+# layer of the single-device decode: M6's 2 bf16 ulps for each layer,
+# since the stream's sharded sums round again in every layer (gemma3-1b
+# at full width, 6 layers: 0.018 of max |logits| on a CPU world, 0.020
+# on an H100)
+M7_POD = (2, 1, 2)
+M7_POD_AXES = ("pod", "data", "model")
 
 
 def m7_devices():
@@ -4577,6 +4593,86 @@ def _m7_host(t):
     return t.detach().cpu()
 
 
+def m7_decode_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    return replace(get_config(arch), n_layers=layers)
+
+
+def m7_decode_inputs(cfg, device):
+    """(cache, tokens) of M7 (d): every cache leaf drawn from one
+    generator seeded 1 on ``device`` (the same on every rank and in the
+    reference), the tokens (1, steps) from a numpy generator."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.decoder import init_cache, map_cache
+
+    d = M_CFG["m7_decode"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    cache = map_cache(init_cache(cfg, 1, d["slots"], device=device),
+                      lambda t: torch.randn(t.shape, generator=gen,
+                                            device=device).to(t.dtype))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                             (1, d["steps"]))
+    return cache, torch.from_numpy(toks.astype(np.int32)).to(device)
+
+
+@contextlib.contextmanager
+def m7_queries():
+    """Each decode kernel call's q on plain tensors, as a host copy, in
+    the list yielded: the single-device step's, and inside the sharded
+    route each rank's own heads."""
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.models import attention as A
+
+    seen, real = [], DO.decode
+
+    def decode(q, *args, **kwargs):
+        if not hasattr(q, "placements"):
+            seen.append(q.detach().float().cpu())
+        return real(q, *args, **kwargs)
+
+    DO.decode = A.decode = decode
+    try:
+        yield seen
+    finally:
+        DO.decode = A.decode = real
+
+
+def m7_decode_steps(params, cache, toks, cfg, place=None) -> list:
+    """M7 (d)'s decode steps from the last ``steps`` positions of the
+    cache; ``place(token)`` puts a token on the mesh."""
+    from repro_torch.models.model import decode_step
+
+    d = M_CFG["m7_decode"]
+    out = []
+    for i in range(d["steps"]):
+        tok = toks[:, i:i + 1]
+        logits, cache = decode_step(params, cache,
+                                    place(tok) if place else tok,
+                                    d["slots"] - d["steps"] + i, cfg)
+        out.append(logits)
+    return out
+
+
+def m7_decode_dry(arch: str, layers: int) -> dict:
+    """The dry run's collectives by op (bytes) of one step of M7 (d)'s
+    decode, traced on a fake world of its 4 ranks."""
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import ShapeCell
+
+    d = M_CFG["m7_decode"]
+    return trace_step(m7_decode_cfg(arch, layers),
+                      ShapeCell("long", d["slots"], 1, "decode"),
+                      int(math.prod(M7_POD)),
+                      lambda devs: make_test_mesh(M7_POD, M7_POD_AXES,
+                                                  devices=devs)
+                      )["collectives"]
+
+
 def m7_refs(cuda, ref_dir) -> dict:
     """M7's single-device references on the card, each freed before the
     next: (c) each pair config's loss and gradients (host), (a) the
@@ -4647,7 +4743,30 @@ def m7_refs(cuda, ref_dir) -> dict:
         refs["ffn"]["files"][k] = path
     del p, x, w, y, r, grads
     free()
+    refs["decode"] = m7_decode_refs(cuda)
     return refs
+
+
+def m7_decode_refs(device) -> dict:
+    """M7 (d)'s single-device decode of each configuration on
+    ``device``: logits and each decode kernel call's q (host)."""
+    import torch
+
+    from repro_torch.models.model import init_params
+
+    out = {}
+    for arch, layers in M_CFG["m7_decode"]["archs"]:
+        cfg = m7_decode_cfg(arch, layers)
+        cache, toks = m7_decode_inputs(cfg, device)
+        with torch.no_grad(), m7_queries() as qs:
+            logits = m7_decode_steps(init_params(cfg, 0, device), cache,
+                                     toks, cfg)
+        out[arch] = dict(logits=[lg.float().cpu() for lg in logits], q=qs)
+        del cache, logits
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def m7_rank(rank, mesh, cfg_m, refs):
@@ -4810,7 +4929,69 @@ def m7_rank(rank, mesh, cfg_m, refs):
         seconds=seconds, peak=peak, comm=m_comm_summary(calls))
     del p, xd, wd, y, r, grads
     free()
+
+    out["d"] = m7_decode_rank(mesh, dev, progress)
     progress("done")
+    return out
+
+
+def m7_decode_rank(mesh, dev, progress=lambda msg: None) -> dict:
+    """M7 (d) on one rank of the world of ``mesh``: each configuration's
+    batch-1 decode on a second DeviceMesh over the same ranks, ("pod",
+    "data", "model") = ``M7_POD``, placed by the sharding rules: logits
+    and each decode kernel call's q (host), the placements of the stream
+    entering each block, rank 0's collectives, seconds, launches."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             cache_shardings, device_put,
+                                             param_shardings)
+    from repro_torch.models import decoder as D
+    from repro_torch.models.model import ShapeCell, init_params, model_specs
+
+    pod = make_test_mesh(M7_POD, M7_POD_AXES, devices=list(mesh.devices.flat))
+    out = {}
+    for arch, layers in M_CFG["m7_decode"]["archs"]:
+        progress(f"(d) {arch}, {layers} layers")
+        cfg = m7_decode_cfg(arch, layers)
+        cache, toks = m7_decode_inputs(cfg, dev)
+        cell = ShapeCell("d", M_CFG["m7_decode"]["slots"], 1, "decode")
+        streams, real_block = [], D._block_decode
+
+        def block(p, x, *args, **kwargs):
+            streams.append(str(tuple(x.placements)))
+            return real_block(p, x, *args, **kwargs)
+
+        with torch.no_grad():
+            params = device_put(init_params(cfg, 0, dev),
+                                param_shardings(model_specs(cfg), cfg, pod))
+            cache = device_put(cache, cache_shardings(cfg, cell, pod, cache))
+            DK.reset_launches()
+            m_sync(dev)
+            t0 = time.perf_counter()
+            D._block_decode = block
+            try:
+                with m_comm_counts() as calls, m7_queries() as qs, \
+                        implicit_replication():
+                    logits = m7_decode_steps(
+                        params, cache, toks, cfg, lambda t: device_put(
+                            t, batch_shardings(cfg, cell, pod,
+                                               {"t": t})["t"]))
+                m_sync(dev)
+            finally:
+                D._block_decode = real_block
+            seconds = time.perf_counter() - t0
+            out[arch] = dict(
+                logits=[_m7_host(lg).float() for lg in logits], q=qs,
+                streams=streams, seconds=seconds, comm=m_comm_summary(calls),
+                launches=DK.LAUNCHES["decode_attention"])
+        del params, cache, logits
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4880,6 +5061,69 @@ def m7_check(outs, refs, smi: str) -> None:
                 and b["max_err"] <= M_MOE_RTOL * b["ref_max"]
                 and ulps[worst] <= M7_GRAD_ULPS):
             raise AssertionError(f"M7 (b) rank {rank}: {b} {ulps}")
+    m7_check_decode(outs, refs, smi)
+
+
+def m7_heads(got, want) -> tuple:
+    """For each q head of a rank's decode kernel call ``got`` (B, h, D),
+    the head of the single-device call ``want`` (B, H, D) nearest to it,
+    and the largest of those distances over max |want|."""
+    import torch
+
+    err = torch.stack([(got[:, i, None] - want).abs().amax(dim=(0, 2))
+                       for i in range(got.shape[1])])      # (h, H)
+    best, heads = err.min(dim=1)
+    return heads.tolist(), float(best.max() / want.abs().max())
+
+
+def m7_check_decode(outs, refs, smi: str) -> None:
+    """M7 (d)'s lines: each rank's logits within M_MOE_RTOL of max
+    |logits| a layer of the single-device decode, every block's stream
+    with no partial sum, and each decode kernel call's q heads: the two
+    "model" ranks of a pod take different ones, the two "pod" ranks of a
+    "model" rank the same.  Raises on any failed check."""
+    import numpy as np
+
+    d = M_CFG["m7_decode"]
+    for arch, layers in d["archs"]:
+        ref = refs["decode"][arch]
+        limit = M_MOE_RTOL * layers
+        heads = {}
+        for rank, o in enumerate(outs):
+            g = o["d"][arch]
+            ref_max = max(float(x.abs().max()) for x in ref["logits"])
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(g["logits"], ref["logits"]))
+            got = [m7_heads(a, b) for a, b in zip(g["q"], ref["q"])]
+            pos = tuple(int(i) for i in np.unravel_index(rank, M7_POD))
+            heads[pos] = [h for h, _ in got]
+            q_err = max([e for _, e in got] or [0.0])
+            partial = sum("Partial" in x for x in g["streams"])
+            log(f"M7 (d) {arch}, {layers} layers, batch 1 at {d['slots']:,} "
+                f"slots, {d['steps']} decode steps on (pod, data, model) = "
+                f"{M7_POD}, {m7_decode_cfg(arch, layers).dtype}, rank "
+                f"{rank}: max |err| {err:.4g} of max "
+                f"|logits| {ref_max:.4g} (limit {limit:.2g} of it); "
+                f"decode_attention {g['launches']} launches, q heads "
+                f"{sorted(set(sum(heads[pos], [])))} (nearest "
+                f"single-device head within {q_err:.3g} of max "
+                f"|q|); {partial} of {len(g['streams'])} block inputs "
+                f"partial; {g['seconds']:.2f} s [{smi}]")
+            launched = g["launches"] == len(ref["q"]) \
+                or M_CFG["device_type"] != "cuda"
+            if not (err <= limit * ref_max and partial == 0 and launched
+                    and len(g["q"]) == len(ref["q"]) and q_err <= limit):
+                raise AssertionError(f"M7 (d) {arch} rank {rank}: err {err}, "
+                                     f"{partial} partial, q {q_err}")
+        for (p_, d_, m_), per_call in heads.items():
+            peer, twin = heads[(p_, d_, 1 - m_)], heads[(1 - p_, d_, m_)]
+            for mine, theirs, same in zip(per_call, peer, twin):
+                if set(mine) & set(theirs) or mine != same:
+                    raise AssertionError(f"M7 (d) {arch}: rank {(p_, d_, m_)}"
+                                         f" heads {mine}, its model peer "
+                                         f"{theirs}, its pod twin {same}")
+        log(f"M7 (d) {arch} rank 0: {d['steps']} steps, "
+            f"{m_comm_line(outs[0]['d'][arch]['comm'])} [{smi}]")
 
 
 def m_moe_train(cuda, smi: str) -> dict:
@@ -4914,7 +5158,21 @@ def m_moe_train(cuda, smi: str) -> dict:
         if alloc is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
     m7_check(outs, refs, smi)
-    return {"flash_attention": sum(o["a"]["flash"] for o in outs)}
+    t0 = time.perf_counter()
+    steps = M_CFG["m7_decode"]["steps"]
+    for arch, layers in M_CFG["m7_decode"]["archs"]:
+        dry = m7_decode_dry(arch, layers)
+        dry = {op: [dry["op_counts"][op], b] for op, b in dry["by_op"].items()}
+        card = {op: [n / steps, b / steps] for op, (n, b, _)
+                in outs[0]["d"][arch]["comm"].items()}
+        log(f"M7 (d) {arch}: rank 0's collectives a step by op [calls, "
+            f"bytes] {dict(sorted(card.items()))}, the dry run's for the "
+            f"same layers and mesh {dict(sorted(dry.items()))}: "
+            f"{'equal' if card == dry else 'different'}")
+    log(f"M7 (d) dry runs: {time.perf_counter() - t0:.1f} s")
+    return {"flash_attention": sum(o["a"]["flash"] for o in outs),
+            "decode_attention": sum(o["d"][a]["launches"] for o in outs
+                                    for a, _ in M_CFG["m7_decode"]["archs"])}
 
 
 def m_spmd(cuda, smi: str) -> dict:
@@ -5091,7 +5349,7 @@ def m_spmd(cuda, smi: str) -> dict:
                                    + o["m5"]["launches"]["flash_attention"]
                                    for o in outs) + m7["flash_attention"],
             "decode_attention": sum(o["m5"]["launches"]["decode_attention"]
-                                    for o in outs)}
+                                    for o in outs) + m7["decode_attention"]}
 
 
 M_KERNELS = (

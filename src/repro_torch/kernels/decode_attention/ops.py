@@ -10,14 +10,18 @@ moves:
   * where it splits the sequence (the sequence-parallel ``long_500k``
     cells, ``kv_seq_model``), each rank attends its own key shard, its
     live length taken in the shard's coordinates;
-  * where a mesh dim of n ranks cannot split the kv heads but n is a
-    multiple of them, each kv head's replica is shared by r = n / Hkv
-    ranks and its group of g q heads is split between them
+  * where the mesh dim that the JAX package's rules give the heads
+    ("model"; on a mesh with no such dim, the first dim the cache leaves
+    free) has n ranks, cannot split the kv heads, and n is a multiple
+    of them, each kv head's replica is shared by r = n / Hkv ranks and
+    its group of g q heads is split between them
     (``models.common.replica_plan``): by d = gcd(g, r) over the q heads and by
     c = r / d over the keys, each rank narrowing its own replica of the
     cache.  With c = 1 (granite-8b: 32 q / 8 kv heads over 16 ranks) the
     ranks' q heads are a plain split of the heads;
-  * elsewhere q is replicated.
+  * elsewhere q is replicated: a batch dim that a batch of one leaves
+    free ("pod" of ("pod", "data", "model"), or "data" where the keys do
+    not split over it) repeats the heads' work, as in the JAX package.
 
 Every rank runs the kernel on its own rows, heads and keys.  Key shards
 merge by their log-sum-exp (the kernel's ``return_lse``,
@@ -65,13 +69,14 @@ def _decode_local(q, k, v, kv_len, sm_scale, window, impl):
     cache; returns a DTensor."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-    from ...models.common import replica_plan, shard_range
+    from ...models.common import heads_mesh_dim, replica_plan, shard_range
 
     mesh = k.device_mesh
     hq, hkv = q.shape[1], k.shape[1]
     group = hq // hkv
     heads_split = any(isinstance(pl, Shard) and pl.dim == 1
                       for pl in k.placements)
+    heads_dim = heads_mesh_dim(mesh)
     kvp, qp, lp = [], [], []
     merge = []             # mesh dims whose ranks hold shards of the keys
     replica = None         # (mesh dim, replica_plan) of a shared kv head
@@ -87,7 +92,7 @@ def _decode_local(q, k, v, kv_len, sm_scale, window, impl):
         kvp.append(Replicate())
         lp.append(Replicate())
         plan = None if heads_split or replica is not None \
-            else replica_plan(hkv, group, n)
+            or heads_dim not in (None, i) else replica_plan(hkv, group, n)
         if plan is None or plan[0] == 1:
             qp.append(Replicate())
             continue

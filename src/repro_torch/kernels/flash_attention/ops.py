@@ -10,12 +10,16 @@ There is no backward kernel, in the JAX package or here.
 
 On an SPMD rank q, k and v arrive as DTensors (tensor parallelism over
 the heads).  :func:`attention` then keeps the batch where it is sharded
-and splits the heads over every other mesh dim whose size divides both
-``n_heads`` and ``n_kv_heads`` (so each rank's q heads read exactly its
-own kv heads).  Where a mesh dim of n ranks cannot split the kv heads
-but n is a multiple of them, the r = n / Hkv ranks that share a kv head
-split its work as decode does (``models.common.replica_plan``):
-its g q heads by d = gcd(g, r), and the queries by c = r / d.  Each rank
+and splits the heads over the mesh dim that the JAX package's rules give
+them ("model"; on a mesh with no such dim, the first other dim) where
+its size divides both ``n_heads`` and ``n_kv_heads`` (so each rank's q
+heads read exactly its own kv heads).  A batch dim that the batch leaves
+free ("pod" or "data" under a batch smaller than the pod) replicates the
+heads, as in the JAX package.  Where that heads' dim of n ranks cannot
+split the kv heads but n is a multiple of them, the r = n / Hkv ranks
+that share a kv head split its work as decode does
+(``models.common.replica_plan``): its g q heads by d = gcd(g, r), and
+the queries by c = r / d.  Each rank
 narrows its replica of k and v to its kv head.  With c = 1 (granite-8b:
 2 q heads a rank inside a group of 4) the ranks' q heads are a plain
 split of the heads.  Otherwise (gemma3-1b, llama4-scout, phi4-mini) the
@@ -80,19 +84,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _head_placements(q, n_kv: int):
     """(q placements, kv placements) for (B, H, T, D) DTensors: batch
-    shards stay, heads split where the mesh dim divides both head
-    counts, everything else replicated."""
+    shards stay, heads split over the heads' mesh dim
+    (``heads_mesh_dim``: "model", or on a mesh with no such dim the first
+    other dim) where its size divides both head counts, everything else
+    replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
+    from ...models.common import heads_mesh_dim
+
     mesh = q.device_mesh
+    heads_dim = heads_mesh_dim(mesh)
     qp, kvp = [], []
     for i, pl in enumerate(q.placements):
         size = mesh.size(i)
         if isinstance(pl, Shard) and pl.dim == 0:
             qp.append(Shard(0))
             kvp.append(Shard(0))
-        elif q.shape[1] % size == 0 and n_kv % size == 0 \
-                and Shard(1) not in qp:
+        elif heads_dim in (None, i) and q.shape[1] % size == 0 \
+                and n_kv % size == 0 and Shard(1) not in qp:
             qp.append(Shard(1))
             kvp.append(Shard(1))
         else:
@@ -102,17 +111,19 @@ def _head_placements(q, n_kv: int):
 
 
 def _replica_route(q, n_kv: int, qp, kvp, causal: bool):
-    """(mesh dim, (r, d, c)) where the ranks of a mesh dim that
-    replicates the heads share each kv head (``replica_plan``), or None.
-    The query chunks need a causal mask and 2c equal chunks."""
+    """(mesh dim, (r, d, c)) where the ranks of the heads' mesh dim
+    (``heads_mesh_dim``; any dim on a mesh with none), replicating the
+    heads, share each kv head (``replica_plan``), or None.  The query
+    chunks need a causal mask and 2c equal chunks."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from ...models.common import replica_plan
+    from ...models.common import heads_mesh_dim, replica_plan
 
     if Shard(1) in kvp:
         return None
+    heads_dim = heads_mesh_dim(q.device_mesh)
     for i, pl in enumerate(qp):
-        if not isinstance(pl, Replicate):
+        if not isinstance(pl, Replicate) or heads_dim not in (None, i):
             continue
         plan = replica_plan(n_kv, q.shape[1] // n_kv, q.device_mesh.size(i))
         if plan is None or plan[0] == 1:

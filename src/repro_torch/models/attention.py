@@ -28,7 +28,7 @@ from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
 from .common import (ParamSpec, apply_rope, copy_to_model,
                      reduce_from_model, rmsnorm, rmsnorm_spec, row_parallel,
-                     shard_range)
+                     shard_range, summed_to_rows)
 from .config import ArchConfig
 
 
@@ -191,10 +191,11 @@ def mla_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _mla_q(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _mla_q(p, x: torch.Tensor, cfg: ArchConfig,
+           down=torch.matmul) -> torch.Tensor:
     if cfg.q_lora_rank:
         # the latent feeds the heads' column-parallel up-projection
-        q = rmsnorm(p["q_norm"], copy_to_model(x @ p["q_down"]),
+        q = rmsnorm(p["q_norm"], copy_to_model(down(x, p["q_down"])),
                     cfg.norm_eps) @ p["q_up"]
     else:
         q = x @ p["q_up"]
@@ -245,6 +246,14 @@ def _mha_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
+def _latent(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a decode step's stream ``x`` (B, 1, d) and a
+    down-projection ``w`` (d, r) that no mesh dim splits by columns,
+    summed to the stream's rows (:func:`summed_to_rows`): each rank's
+    heads then take its own rows, not every row of the step."""
+    return summed_to_rows(x @ w, x)
+
+
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                    device=None) -> Dict[str, torch.Tensor]:
     return {
@@ -265,10 +274,10 @@ def mla_decode(p, x: torch.Tensor, cache: Dict, cur_len: int,
     nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
     pos = torch.full((1, 1, 1), int(cur_len), dtype=torch.int32,
                      device=x.device)
-    q = _mla_q(p, x, cfg)[:, :, 0]                     # (B, H, nope + rope)
+    q = _mla_q(p, x, cfg, _latent)[:, :, 0]            # (B, H, nope + rope)
     q_rope = apply_rope(q[..., nope:][:, :, None], pos,
                         cfg.rope_theta)[:, :, 0]
-    ckv_full = x @ p["kv_down"]                        # (B, 1, r + rope)
+    ckv_full = copy_to_model(_latent(x, p["kv_down"]))  # (B, 1, r + rope)
     cache["ckv"][:, cur_len:cur_len + 1] = rmsnorm(
         p["kv_norm"], ckv_full[..., :r], cfg.norm_eps)
     cache["k_rope"][:, cur_len:cur_len + 1] = apply_rope(
@@ -286,4 +295,4 @@ def mla_decode(p, x: torch.Tensor, cache: Dict, cur_len: int,
     w = torch.softmax(s, dim=-1).to(dtype)
     ctx = torch.einsum("bhs,bsr->bhr", w, ckv)         # (B, H, r)
     out = torch.einsum("bhr,rhv->bhv", ctx, p["v_up"].reshape(r, h, vd))
-    return out.reshape(b, 1, h * vd) @ p["wo"], cache
+    return row_parallel(out.reshape(b, 1, h * vd), p["wo"], rows=x), cache

@@ -368,22 +368,41 @@ def gathered_on_use(w: torch.Tensor) -> torch.Tensor:
         else pl for i, pl in enumerate(w.placements)])
 
 
-def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_parallel(h: torch.Tensor, w: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``h @ w`` for a weight whose rows (the contraction) a mesh dim
     splits: attention's and the dense FFN's output projections, MLA's,
     Mamba's ``x_proj`` and ``out_proj``, RG-LRU's ``out``; reduced
-    (:func:`reduce_from_model`).  On DTensors ``h`` is first split along
-    its last dim as ``w``'s rows are (a slice of what a rank holds),
-    through an autograd redistribute, so that its gradient comes back
-    placed as ``h`` was (llama4-scout's 40 heads do not split 16 ways,
-    and the merged heads' gradient could not be viewed as heads)."""
+    (:func:`reduce_from_model`), or with ``rows`` (a decode step, no
+    gradient) summed to ``rows``'s row split (:func:`summed_to_rows`).
+    On DTensors ``h`` is first split along its last dim as ``w``'s rows
+    are (a slice of what a rank holds), through an autograd
+    redistribute, so that its gradient comes back placed as ``h`` was
+    (llama4-scout's 40 heads do not split 16 ways, and the merged heads'
+    gradient could not be viewed as heads)."""
     if _is_dtensor(h):
         from torch.distributed.tensor import Shard
 
         h = _placed(h, h.device_mesh,
                     [Shard(h.ndim - 1) if wp == Shard(0) else hp
                      for hp, wp in zip(h.placements, w.placements)])
+    if rows is not None:
+        return summed_to_rows(h @ w, rows)
     return reduce_from_model(h @ w)
+
+
+def summed_to_rows(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """DTensor ``y``, a product of a decode step's stream ``x`` (no
+    gradient), whole but for ``x``'s row split: its partial sums summed
+    into ``x``'s rows (a reduce-scatter where a mesh dim splits both the
+    rows and the contraction, as FSDP's "data" does), and any other split
+    gathered.  DTensor resolves FSDP's split of a weight by moving the
+    rows to a split of d, so the product holds every row of the step;
+    :func:`reduce_from_model` would keep them all.  Anything else as it
+    is."""
+    if not _is_dtensor(y):
+        return y
+    return _placed(y, y.device_mesh, _rows_only(x))
 
 
 def settle_residual(x: torch.Tensor) -> torch.Tensor:
@@ -391,6 +410,16 @@ def settle_residual(x: torch.Tensor) -> torch.Tensor:
     for its rows, and its gradient too (:func:`reduce_from_model`),
     in training as in prefill and decode."""
     return reduce_from_model(x)
+
+
+def heads_mesh_dim(mesh) -> Optional[int]:
+    """The dim of DeviceMesh ``mesh`` that the JAX package's rules give
+    the attention heads ("model", ``launch.sharding.logical_rules``), or
+    None on a mesh with no such dim.  The sharded attention routes split
+    the heads, and share a kv head's replica, over that dim only; a
+    batch dim the batch leaves free ("pod", "data") replicates them."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
 
 
 def replica_plan(n_kv: int, group: int, n: int) -> Optional[Tuple[int, int,

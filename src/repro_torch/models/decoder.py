@@ -197,7 +197,10 @@ def _caches(cache: Dict, cfg: ArchConfig):
 
 def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
                   ffn_kind: str, dtype):
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    """One token through one block; the residual stream is settled where
+    :func:`block_forward` settles it."""
+    x = settle_residual(x)
+    h = copy_to_model(rmsnorm(p["norm1"], x, cfg.norm_eps))
     if kind == "mla":
         h, cache = A.mla_decode(p["mix"], h, cache, cur_len, cfg,
                                 dtype=dtype)
@@ -220,8 +223,8 @@ def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
     else:
         h, cache = A.gqa_decode(p["mix"], h, cache, cur_len, cfg,
                                 window=None, dtype=dtype)
-    x = x + h
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    x = settle_residual(x + h)
+    h = copy_to_model(rmsnorm(p["norm2"], x, cfg.norm_eps))
     return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype), cache
 
 

@@ -292,9 +292,8 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     # flattening)
     xf = copy_to_model(x.reshape(s, d))
     r = route(cfg, xf @ p["router"])
-    arrived = None
     if _is_dtensor(xf):
-        arrived, xf = xf.placements, _token_rows(xf, p["w1"])
+        xf = _token_rows(xf, p["w1"])
     routed = _routed_on_ranks if _is_dtensor(xf) else _routed
     out = routed(p, xf, r, cfg, dtype)
     if cfg.n_shared_experts:
@@ -303,16 +302,13 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
         shared = {n: gathered_on_use(p["shared"][n])
                   for n in ("w1", "w3", "w2")}
         out = out + dense_forward(shared, xf, dtype)
-    if arrived is not None and tuple(arrived) != tuple(xf.placements):
-        out = _stream_of(out, arrived, p["w1"])
     return out.reshape(b, t, d)
 
 
 def _token_rows(xf: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """DTensor rows ``xf`` (S, d) split by rows over the mesh dims that
     split them by rows or by d and do not split the experts (the token
-    dims), and whole over every other: what the routed experts take.  A
-    decode step's stream may arrive as partial sums or split by d."""
+    dims), and whole over every other: what the routed experts take."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = xf.device_mesh
@@ -320,25 +316,6 @@ def _token_rows(xf: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
         Shard(0) if isinstance(pl, Shard) and not (
             isinstance(w, Shard) and w.dim != 1) else Replicate()
         for pl, w in zip(xf.placements, w1.placements)])
-
-
-def _stream_of(out: torch.Tensor, arrived, w1: torch.Tensor
-               ) -> torch.Tensor:
-    """The MoE output ``out`` (S, d) for a stream that arrived placed as
-    ``arrived``, not split by rows alone (a decode step's): split by d
-    over every mesh dim that splits the expert weights, by rows over the
-    others that split the rows.  The next layer's products, whose
-    weights FSDP splits by d over "data", then take every row's slice
-    of d, where a stream split by rows over "data" and whole over
-    "model" has each "model" rank compute its "data" block's products
-    whole."""
-    from torch.distributed.tensor import Replicate, Shard
-
-    mesh = out.device_mesh
-    return _placed(out, mesh, [
-        Shard(1) if isinstance(w, Shard) and mesh.size(i) > 1
-        else Shard(0) if pl == Shard(0) else Replicate()
-        for i, (pl, w) in enumerate(zip(arrived, w1.placements))])
 
 
 def _routed(p, xf: torch.Tensor, r: Routing, cfg: ArchConfig, dtype
@@ -374,9 +351,8 @@ def _routed(p, xf: torch.Tensor, r: Routing, cfg: ArchConfig, dtype
 # reduce-scatter over "model" then hands each rank all k contributions
 # of its share of the rows (each lies on one group's rank), summed in
 # choice order as on one device, and an all-gather joins the rows.  No
-# rank holds the step's rows or every expert's output.  (A decode step's
-# stream, which may arrive as partial sums or split by d, is first split
-# by rows: :func:`_token_rows`, :func:`_stream_of`.)  Two ways to feed
+# rank holds the step's rows or every expert's output.  (The rows are
+# first placed so: :func:`_token_rows`.)  Two ways to feed
 # the group's experts, chosen by the bytes each moves
 # (:func:`feed_bytes`):
 #

@@ -173,7 +173,7 @@ def decode_step(params, cache, token: torch.Tensor, cur_len: int,
     x = _embed(params, token)
     x, cache = decoder_decode_step(params["layers"], cache, x, int(cur_len),
                                    cfg, dtype)
-    return _logits(params, x, cfg)[:, 0], cache
+    return _logits(params, settle_residual(x), cfg)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

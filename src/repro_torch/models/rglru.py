@@ -99,9 +99,9 @@ def rglru_decode(p, x: torch.Tensor, cache: Dict, cfg: ArchConfig, dtype
     gate = _gelu(x[:, 0] @ p["in_gate"])
     conv = torch.cat([cache["conv"][:, :, 1:], xb[:, :, None]], dim=2)
     xc = (conv * p["conv_w"]).sum(-1) + p["conv_b"]
-    i_t, a_t, beta = _gates(p, xc, dtype)
+    i_t, a_t, beta = _gates(p, xc, dtype, _scatter_channels)
     h = a_t * cache["h"] + beta * (i_t * xc)
-    out = ((h * gate) @ p["out"])[:, None]
+    out = row_parallel(h * gate, p["out"])[:, None]
     cache["conv"].copy_(conv)
     cache["h"].copy_(h)
     return out, cache

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from .common import ParamSpec, copy_to_model, row_parallel
 from .config import ArchConfig
+from .ffn import _all_to_all
 from .scan_ops import on_local_shards, ssm_scan
 
 
@@ -96,6 +97,40 @@ def _in_proj(x: torch.Tensor, w: torch.Tensor):
                  for h in halves)
 
 
+def _in_proj_token(x: torch.Tensor, w: torch.Tensor):
+    """(x_in, z) = the two halves of ``x @ w`` for a decode step's rows
+    x (B, d).  Where ``w`` is a DTensor whose columns one mesh dim of n
+    ranks splits (n even, 2 di a multiple of 2n), rank j's block of the
+    product lies in one half, and its two parts are the blocks of ranks
+    2 (j mod n/2) and 2 (j mod n/2) + 1 in that half's split: one
+    all-to-all over that dim of a rank's (B, 2 di / n) elements places
+    both halves as the weight's columns are placed.  DTensor would
+    gather the product for ``chunk``, and the forward's :func:`_in_proj`
+    gathers the weight, which a step of one token cannot repay."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    xz = x @ w
+    if not isinstance(xz, DTensor):
+        return xz.chunk(2, dim=-1)
+    mesh, last = xz.device_mesh, xz.ndim - 1
+    cols = [i for i, pl in enumerate(xz.placements) if pl == Shard(last)]
+    n = mesh.size(cols[0]) if len(cols) == 1 else 0
+    if n < 2 or n % 2 or xz.shape[last] % (2 * n):
+        return xz.chunk(2, dim=-1)
+    j, half = mesh.get_local_rank(cols[0]), n // 2
+    loc = xz.to_local()
+    parts = loc.reshape(loc.shape[:last] + (2, -1)).movedim(last, 0)
+    send = [int(i // 2 == j % half) for i in range(n)]
+    recv = [int(i % half == j // 2) for i in range(n)]
+    got = _all_to_all(parts, send, recv, (mesh, cols[0]))
+    shape = xz.shape[:last] + (xz.shape[last] // 2,)
+    return tuple(DTensor.from_local(t, mesh, xz.placements, run_check=False,
+                                    shape=shape,
+                                    stride=torch.empty(shape, device="meta"
+                                                       ).stride())
+                 for t in got)
+
+
 def mamba_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
                   ) -> torch.Tensor:
     x_in, z = _in_proj(x, p["in_proj"])
@@ -126,16 +161,17 @@ def mamba_decode(p, x: torch.Tensor, cache: Dict, cfg: ArchConfig, dtype
                  ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d) -> (B, 1, d); the O(1) state is updated in place and
     ``cache`` returned."""
-    xz = x[:, 0] @ p["in_proj"]
-    x_in, z = xz.chunk(2, dim=-1)                      # (B, di)
+    x_in, z = _in_proj_token(x[:, 0], p["in_proj"])   # (B, di)
     conv = torch.cat([cache["conv"][:, :, 1:], x_in[:, :, None]], dim=2)
     x_c = F.silu((conv * p["conv_w"]).sum(-1) + p["conv_b"])
-    dt, Bm, Cm = _split_proj(x_c @ p["x_proj"], cfg)
+    # summed as in the forward: dt_proj multiplies each rank's columns
+    dt, Bm, Cm = _split_proj(copy_to_model(row_parallel(x_c, p["x_proj"])),
+                             cfg)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])  # (B, di)
     da = torch.exp(dt[..., None] * _a_matrix(p, dtype))   # (B, di, st)
     h = da * cache["ssm"] + (dt * x_c)[..., None] * Bm[:, None, :]
     y = torch.einsum("bds,bs->bd", h, Cm) + x_c * p["D"].to(dtype)
-    out = ((y * F.silu(z)) @ p["out_proj"])[:, None]
+    out = row_parallel(y * F.silu(z), p["out_proj"])[:, None]
     cache["conv"].copy_(conv)
     cache["ssm"].copy_(h)
     return out, cache

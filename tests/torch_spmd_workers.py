@@ -802,3 +802,244 @@ def _tensor_tree(tree):
     if isinstance(tree, dict):
         return {k: _tensor_tree(v) for k, v in tree.items()}
     return torch.from_numpy(tree)
+
+
+# ---------------------------------------------------------------------------
+# batch-1 routes on a 3-axis mesh: ("pod", "data", "model") = (2, 1, 2)
+# ---------------------------------------------------------------------------
+POD_MESH = (2, 1, 2)
+POD_AXES = ("pod", "data", "model")
+POD_DECODE_ARCHS = ("gemma3-1b-smoke", "recurrentgemma-9b-smoke",
+                    "falcon-mamba-7b-smoke")
+POD_PREFILL_ARCH = "granite-8b-smoke"
+# 80 cache slots, decoded from position 64: the local layers' rolling
+# caches hold the 64-slot window, so they roll from the first step
+POD_SLOTS, POD_POS, POD_STEPS = 80, 64, 4
+POD_PREFILL_T = 16
+# the decode that is also held against the JAX package, from zeroed
+# caches: the RG-LRU blocks and the local attention of the hybrid
+POD_JAX_ARCH = "recurrentgemma-9b-smoke"
+POD_JAX_SLOTS, POD_JAX_STEPS = 16, 6
+
+
+def pod_tokens(cfg, steps: int, seed: int = 3) -> np.ndarray:
+    """(1, steps) int32 tokens from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (1, steps)).astype(np.int32)
+
+
+@contextlib.contextmanager
+def attention_queries():
+    """Inside the context each attention kernel call's q on plain
+    tensors (the single-device step's, and each rank's local heads
+    inside the sharded routes) is appended to the yielded list: the
+    decode wrapper as ``models.attention`` and the sharded route call
+    it, and flash attention's autograd Function."""
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import attention as A
+
+    seen = []
+    real_decode, real_flash = DO.decode, FO._Attention
+
+    def decode(q, *args, **kwargs):
+        if not hasattr(q, "placements"):
+            seen.append(q.detach().clone())
+        return real_decode(q, *args, **kwargs)
+
+    class Flash:
+        @staticmethod
+        def apply(q, *args):
+            seen.append(q.detach().clone())
+            return real_flash.apply(q, *args)
+
+    DO.decode = A.decode = decode
+    FO._Attention = Flash
+    try:
+        yield seen
+    finally:
+        DO.decode = A.decode = real_decode
+        FO._Attention = real_flash
+
+
+def query_heads(got: torch.Tensor, want: torch.Tensor) -> list:
+    """For each q head (dim 1) of a rank's kernel call ``got``, the head
+    of the single-device call ``want`` it equals (within 1e-5), -1 for
+    none."""
+    out = []
+    for h in range(got.shape[1]):
+        err = [float((got[:, h] - want[:, j]).abs().max())
+               for j in range(want.shape[1])]
+        out.append(int(np.argmin(err)) if min(err) <= 1e-5 else -1)
+    return out
+
+
+@contextlib.contextmanager
+def decode_streams():
+    """Inside the context the placements of the residual stream entering
+    every decode block, and leaving the last, are appended to the
+    yielded list ("plain" for a plain tensor)."""
+    from repro_torch.models import decoder as D
+    from repro_torch.models import model as M
+
+    seen = []
+    real_block, real_stack = D._block_decode, M.decoder_decode_step
+
+    def name(x):
+        return str(tuple(x.placements)) if hasattr(x, "placements") \
+            else "plain"
+
+    def block(p, x, *args, **kwargs):
+        seen.append(name(x))
+        return real_block(p, x, *args, **kwargs)
+
+    def stack(*args, **kwargs):
+        x, cache = real_stack(*args, **kwargs)
+        seen.append(name(x))
+        return x, cache
+
+    D._block_decode, M.decoder_decode_step = block, stack
+    try:
+        yield seen
+    finally:
+        D._block_decode, M.decoder_decode_step = real_block, real_stack
+
+
+def _pod_decode(cfg, mesh) -> dict:
+    """``POD_STEPS`` batch-1 decode steps of ``cfg`` from a seeded cache
+    of ``POD_SLOTS`` slots, on parameters, cache and tokens placed by the
+    sharding rules and on plain tensors: both logits a step, both
+    caches after the last, each kernel call's q heads, the stream's
+    placements into each block and the collectives (op, result bytes)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.models.decoder import init_cache, map_cache
+    from repro_torch.models.model import decode_step
+
+    params = init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    cache = map_cache(init_cache(cfg, 1, POD_SLOTS, device="cpu"),
+                      lambda t: torch.randn(t.shape, generator=gen))
+    toks = torch.from_numpy(pod_tokens(cfg, POD_STEPS))
+    cell = ShapeCell("d", POD_SLOTS, 1, "decode")
+    plain_cache = map_cache(cache, torch.clone)
+    with torch.no_grad(), attention_queries() as want_q:
+        want = [decode_step(params, plain_cache, toks[:, i:i + 1],
+                            POD_POS + i, cfg)[0] for i in range(POD_STEPS)]
+    with torch.no_grad():
+        p = device_put(params, param_shardings(model_specs(cfg), cfg, mesh))
+        c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+        sizes = _collective_sizes()
+        got = []
+        with attention_queries() as got_q, decode_streams() as streams, \
+                sizes, implicit_replication():
+            for i in range(POD_STEPS):
+                tok = toks[:, i:i + 1]
+                t = device_put(tok, batch_shardings(
+                    cfg, cell, mesh, {"token": tok})["token"])
+                lg, c = decode_step(p, c, t, POD_POS + i, cfg)
+                got.append(lg)
+    return {"logits": [_host(x) for x in got],
+            "want": [_host(x) for x in want],
+            "cache": [_host(x) for _, x in named_leaves(c)],
+            "want_cache": [_host(x) for _, x in named_leaves(plain_cache)],
+            "heads": [query_heads(g, w) for g, w in zip(got_q, want_q)],
+            "calls": (len(got_q), len(want_q)),
+            "streams": streams, "collectives": sizes.seen,
+            "dtensor_calls": sizes.dtensor_calls}
+
+
+def _pod_decode_from_zero(cfg, mesh) -> list:
+    """The logits of ``POD_JAX_STEPS`` batch-1 decode steps of ``cfg``
+    (seed-0 parameters) from zeroed caches of ``POD_JAX_SLOTS`` slots,
+    placed by the sharding rules, for the test to hold against the JAX
+    package's decode."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharding import cache_shardings
+    from repro_torch.models.decoder import init_cache
+    from repro_torch.models.model import decode_step
+
+    cell = ShapeCell("d", POD_JAX_SLOTS, 1, "decode")
+    cache = init_cache(cfg, 1, POD_JAX_SLOTS, device="cpu")
+    toks = torch.from_numpy(pod_tokens(cfg, POD_JAX_STEPS))
+    out = []
+    with torch.no_grad():
+        p = device_put(init_params(cfg, 0, device="cpu"),
+                       param_shardings(model_specs(cfg), cfg, mesh))
+        c = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+        with implicit_replication():
+            for i in range(POD_JAX_STEPS):
+                tok = toks[:, i:i + 1]
+                t = device_put(tok, batch_shardings(
+                    cfg, cell, mesh, {"token": tok})["token"])
+                lg, c = decode_step(p, c, t, i, cfg)
+                out.append(_host(lg))
+    return out
+
+
+def _pod_prefill(cfg, mesh) -> dict:
+    """A batch-1 tensor-parallel prefill (``forward`` under no_grad) of
+    ``cfg`` on the sharding rules' placements and on plain tensors: both
+    logits, each flash call's q heads and the DTensor calls."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.from_numpy(pod_tokens(cfg, POD_PREFILL_T))
+    cell = ShapeCell("p", POD_PREFILL_T, 1, "prefill")
+    with torch.no_grad():
+        with attention_queries() as want_q:
+            want = forward(params, toks, cfg)
+        p = device_put(params, param_shardings(model_specs(cfg), cfg, mesh))
+        t = device_put({"tokens": toks}, batch_shardings(
+            cfg, cell, mesh, {"tokens": toks}))["tokens"]
+        sizes = _collective_sizes()
+        with attention_queries() as got_q, sizes, implicit_replication():
+            got = forward(p, t, cfg)
+    return {"logits": _host(got), "want": _host(want),
+            "heads": [query_heads(g, w) for g, w in zip(got_q, want_q)],
+            "calls": (len(got_q), len(want_q)),
+            "dtensor_calls": sizes.dtensor_calls}
+
+
+def pod_routes(rank, mesh):
+    """The batch-1 routes on a ("pod", "data", "model") mesh: each
+    ``POD_DECODE_ARCHS`` config's decode (:func:`_pod_decode`),
+    ``POD_PREFILL_ARCH``'s prefill (:func:`_pod_prefill`), the decode of
+    ``POD_JAX_ARCH`` from zeroed caches (:func:`_pod_decode_from_zero`)
+    and, under ``"unkeyed"``, the DTensor ops' arguments that the
+    sharding cache leaves out of its key (:func:`unkeyed_args`), over
+    the decodes and the prefill."""
+    out = {arch: _pod_decode(get_config(arch), mesh)
+           for arch in POD_DECODE_ARCHS}
+    out["prefill"] = _pod_prefill(get_config(POD_PREFILL_ARCH), mesh)
+    out["from_zero"] = _pod_decode_from_zero(get_config(POD_JAX_ARCH), mesh)
+    calls = [c for key in (*POD_DECODE_ARCHS, "prefill")
+             for c in out[key].pop("dtensor_calls")]
+    out["unkeyed"] = sorted(unkeyed_args(calls))
+    return out
+
+
+# the decode blocks on a ("data", "model") mesh whose "data" splits the
+# batch: MLA and MoE, whose weights' d FSDP also splits over "data"
+# (the latent down-projections' and the output projection's partial
+# sums summed to the stream's rows), and Mamba and RG-LRU (the
+# in-projection's halves by an all-to-all over "model" on each rank's
+# rows, the gates' reduce-scatter)
+BATCH_DECODE_ARCHS = ("deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke",
+                      "falcon-mamba-7b-smoke", "recurrentgemma-9b-smoke")
+
+
+def batch_decode(rank, mesh):
+    """One decode step of each ``BATCH_DECODE_ARCHS`` config at batch
+    ``DECODE_B`` (:func:`_decode_pair`), with the collectives it ran (op,
+    result bytes) and the stream's placements into each block."""
+    out = {}
+    for arch in BATCH_DECODE_ARCHS:
+        sizes = _collective_sizes()
+        with sizes, decode_streams() as streams:
+            out[arch] = _decode_pair(get_config(arch), mesh, DECODE_B)
+        out[arch]["collectives"] = sizes.seen
+        out[arch]["streams"] = [s for s in streams if s != "plain"]
+    return out
