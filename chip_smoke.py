@@ -38,7 +38,7 @@ process per source, all at once) and drives both of the port's paths:
 * families (S3): holds the Mamba, RG-LRU, MoE and MLA families'
   ``-smoke`` configs on the card against the CPU (S3a), then serves
   falcon-mamba-7b, recurrentgemma-9b, llama4-scout (6 of 48 layers) and
-  deepseek-v2 (4 of 60) at full width the same three ways (S3b), with
+  deepseek-v2 (2 of 60) at full width the same three ways (S3b), with
   S2's checks per family;
 * training (T0-T2): holds the differentiable ``flash_attention`` (the
   kernel's forward, a recompute backward through the plain version)
@@ -97,9 +97,15 @@ process per source, all at once) and drives both of the port's paths:
   world of 4 ranks over ("data", "model") = (2, 2) (a card each where
   there are four, else all on ``cuda:0`` over gloo): the six ``-smoke``
   configs' tensor-parallel train step, llama4-scout's at published
-  widths (one of 48 layers, bf16 on f32 masters) and deepseek-v2's MoE
-  FFN forward and backward on DTensors, each against the single-device
-  step on the card (M7);
+  widths (one of 48 layers, bf16 on f32 masters; every attention call
+  on every rank split by rows over "data" and by heads over "model") and
+  deepseek-v2's MoE FFN forward and backward on DTensors, each against
+  the single-device step on the card; batch-1 decode of three cut
+  configurations on a ("pod", "data", "model") = (2, 1, 2) mesh over the
+  same ranks, beside a single-device bf16 decode against an f32 one;
+  and deepseek-v2's dense first layer decoding 4 rows on the (2, 2)
+  mesh, each "model" rank multiplying its share of MLA's latent
+  down-projections, rank 0's collectives equal to the dry run's (M7);
 * the dry run (D), after M: one full-size cell of
   ``repro_torch.launch.dryrun`` (granite-8b ``decode_32k`` on 256 fake
   ranks) with its roofline (D1); then a granite-8b decode step and a
@@ -2227,13 +2233,14 @@ def serving_path(device, smi: str) -> dict:
 # (config, layers served; None = all of them).  Depth is the only cut.
 # The two MoE models' whole stacks do not fit one card (215.5 GB and
 # 453.5 GB of bf16 parameters): llama4-scout keeps 6 of its 48 layers,
-# deepseek-v2 4 of its 60 (its dense first layer and 3 MoE layers).
+# deepseek-v2 2 of its 60 (its dense first layer and one MoE layer,
+# which still cover every block kind; 4 until M7 (e) took its time).
 # falcon-mamba-7b keeps 16 of 64 and recurrentgemma-9b 9 of 38 (3
 # repeats of its pattern) so that the script fits its time: their
 # host-bound decode steps took 112-214 s of it whole, and 67 s at 32
 # and 18 layers.  Widths are the published ones.
 FAMILIES = (("falcon-mamba-7b", 16), ("recurrentgemma-9b", 9),
-            ("llama4-scout-17b-a16e", 6), ("deepseek-v2-236b", 4))
+            ("llama4-scout-17b-a16e", 6), ("deepseek-v2-236b", 2))
 PROFILED_FAMILIES = ("falcon-mamba-7b", "llama4-scout-17b-a16e")
 # The -smoke configs in f32, on the card against the CPU from the same
 # parameters: cuBLAS and the CPU's BLAS, and the kernels and the plain
@@ -3445,7 +3452,12 @@ M_CFG = dict(
     # falcon-mamba-7b two Mamba; slots cut from long_500k's 524,288
     m7_decode=dict(archs=(("gemma3-1b", 6), ("recurrentgemma-9b", 3),
                           ("falcon-mamba-7b", 2)),
-                   slots=32768, steps=4),
+                   slots=32768, steps=4, batch=1,
+                   control="gemma3-1b"),   # also decoded in f32 alone
+    # M7 (e): deepseek-v2's dense first layer (MLA and the dense MLP) at
+    # published widths, 4 rows (2 a "data" rank) on the (2, 2) mesh
+    m7_mla=dict(arch="deepseek-v2-236b", layers=1, batch=4, slots=4096,
+                steps=4),
     device_type="cuda")                # every SPMD tensor lives there
 # M6 (c): one shape of router logits, (moe_tokens, 8), routed at top 2
 # and then at top 1 in the same world (DTensor's sharding cache keys
@@ -4495,6 +4507,10 @@ M7_ZERO_RTOL = 1e-6                  # (c): a top-1 router's zero gradient
 # on an H100)
 M7_POD = (2, 1, 2)
 M7_POD_AXES = ("pod", "data", "model")
+# (a): every attention call's q, k and v placed as the JAX package's
+# rules place them on ("data", "model"): rows over "data", heads over
+# "model" (ROADMAP C15)
+M7_ROWS_HEADS = "(Shard(dim=0), Shard(dim=1))"
 
 
 def m7_devices():
@@ -4599,23 +4615,24 @@ def m7_decode_cfg(arch: str, layers: int):
     return replace(get_config(arch), n_layers=layers)
 
 
-def m7_decode_inputs(cfg, device):
-    """(cache, tokens) of M7 (d): every cache leaf drawn from one
-    generator seeded 1 on ``device`` (the same on every rank and in the
-    reference), the tokens (1, steps) from a numpy generator."""
+def m7_decode_inputs(cfg, device, d=None):
+    """(cache, tokens) of M7 (d), or of the step whose settings ``d``
+    are (M7 (e)): every cache leaf drawn from one generator seeded 1 on
+    ``device`` (the same on every rank and in the reference), the tokens
+    (batch, steps) from a numpy generator."""
     import numpy as np
     import torch
 
     from repro_torch.models.decoder import init_cache, map_cache
 
-    d = M_CFG["m7_decode"]
+    d = d or M_CFG["m7_decode"]
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    cache = map_cache(init_cache(cfg, 1, d["slots"], device=device),
+    cache = map_cache(init_cache(cfg, d["batch"], d["slots"], device=device),
                       lambda t: torch.randn(t.shape, generator=gen,
                                             device=device).to(t.dtype))
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                             (1, d["steps"]))
+                                             (d["batch"], d["steps"]))
     return cache, torch.from_numpy(toks.astype(np.int32)).to(device)
 
 
@@ -4641,12 +4658,13 @@ def m7_queries():
         DO.decode = A.decode = real
 
 
-def m7_decode_steps(params, cache, toks, cfg, place=None) -> list:
-    """M7 (d)'s decode steps from the last ``steps`` positions of the
-    cache; ``place(token)`` puts a token on the mesh."""
+def m7_decode_steps(params, cache, toks, cfg, place=None, d=None) -> list:
+    """M7 (d)'s decode steps (or those of the settings ``d``) from the
+    last ``steps`` positions of the cache; ``place(token)`` puts a token
+    on the mesh."""
     from repro_torch.models.model import decode_step
 
-    d = M_CFG["m7_decode"]
+    d = d or M_CFG["m7_decode"]
     out = []
     for i in range(d["steps"]):
         tok = toks[:, i:i + 1]
@@ -4676,7 +4694,8 @@ def m7_decode_dry(arch: str, layers: int) -> dict:
 def m7_refs(cuda, ref_dir) -> dict:
     """M7's single-device references on the card, each freed before the
     next: (c) each pair config's loss and gradients (host), (a) the
-    loss, grad norm, seconds and peak of the llama4-scout step, (b)
+    loss, grad norm, seconds and peak of the llama4-scout step and its
+    loss in f32 (a forward, the control), (b)
     deepseek-v2's MoE FFN output, route, row gradient and each weight's
     largest |grad| (host), its weight gradients written to ``ref_dir``,
     one file a leaf, for the ranks to read their blocks of."""
@@ -4684,7 +4703,7 @@ def m7_refs(cuda, ref_dir) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models.common import named_leaves
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import cast_params, init_params, loss_fn
     from repro_torch.train.optimizer import global_norm
     from repro_torch.train.train_step import value_and_grad
 
@@ -4716,7 +4735,14 @@ def m7_refs(cuda, ref_dir) -> dict:
                          seconds=time.perf_counter() - t0, peak=m_peak(cuda),
                          params=sum(v.numel() for _, v in
                                     named_leaves(masters)))
-    del masters, grads, batch, loss
+    del grads
+    free()
+    # the control: the same loss in f32, forward only
+    cfg = replace(cfg, dtype="float32")
+    with torch.no_grad():
+        refs["train"]["f32_loss"] = float(loss_fn(cast_params(masters, cfg),
+                                                  batch, cfg))
+    del masters, batch, loss
     free()
 
     cfg, p, x = m_moe_inputs(cuda, M_CFG["m7_ffn"], "bfloat16")
@@ -4744,18 +4770,24 @@ def m7_refs(cuda, ref_dir) -> dict:
     del p, x, w, y, r, grads
     free()
     refs["decode"] = m7_decode_refs(cuda)
+    free()
+    refs["mla"] = m7_mla_ref(cuda)
+    free()
     return refs
 
 
 def m7_decode_refs(device) -> dict:
     """M7 (d)'s single-device decode of each configuration on
-    ``device``: logits and each decode kernel call's q (host)."""
+    ``device``: logits and each decode kernel call's q (host); for the
+    control configuration also the logits of the same decode in f32
+    (``"f32"``: the same draws, before their bf16 rounding)."""
     import torch
 
     from repro_torch.models.model import init_params
 
+    d = M_CFG["m7_decode"]
     out = {}
-    for arch, layers in M_CFG["m7_decode"]["archs"]:
+    for arch, layers in d["archs"]:
         cfg = m7_decode_cfg(arch, layers)
         cache, toks = m7_decode_inputs(cfg, device)
         with torch.no_grad(), m7_queries() as qs:
@@ -4763,10 +4795,99 @@ def m7_decode_refs(device) -> dict:
                                      toks, cfg)
         out[arch] = dict(logits=[lg.float().cpu() for lg in logits], q=qs)
         del cache, logits
+        if arch == d["control"]:
+            cfg = replace(cfg, dtype="float32")
+            cache, toks = m7_decode_inputs(cfg, device)
+            with torch.no_grad():
+                logits = m7_decode_steps(init_params(cfg, 0, device), cache,
+                                         toks, cfg)
+            out[arch]["f32"] = [lg.cpu() for lg in logits]
+            del cache, logits
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def m7_mla_cfg():
+    from repro_torch.configs import get_config
+
+    e = M_CFG["m7_mla"]
+    return replace(get_config(e["arch"]), n_layers=e["layers"])
+
+
+def m7_mla_ref(device) -> list:
+    """M7 (e)'s single-device decode on ``device``: each step's logits
+    (host, f32)."""
+    import torch
+
+    from repro_torch.models.model import init_params
+
+    cfg = m7_mla_cfg()
+    cache, toks = m7_decode_inputs(cfg, device, M_CFG["m7_mla"])
+    with torch.no_grad():
+        logits = m7_decode_steps(init_params(cfg, 0, device), cache, toks,
+                                 cfg, d=M_CFG["m7_mla"])
+    return [lg.float().cpu() for lg in logits]
+
+
+def m7_down_shares() -> tuple:
+    """(flops of one step's latent down-projections, ``q_down`` and
+    ``kv_down``, over its whole batch; the ranks of M7's world)."""
+    e, cfg = M_CFG["m7_mla"], m7_mla_cfg()
+    width = cfg.q_lora_rank + cfg.kv_lora_rank + cfg.qk_rope_dim
+    return 2 * e["batch"] * cfg.d_model * width * e["layers"], 4
+
+
+@contextlib.contextmanager
+def m7_down_flops():
+    """Inside the context, the flops each rank computes in MLA decode's
+    latent down-projections (``attention.model_rows_product``), one
+    entry a call in the list yielded, counted by the dry run's counter
+    on the rank's local ops."""
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.models import attention as A
+
+    real, seen = A.model_rows_product, []
+
+    def counted(x, w):
+        with StepCounter() as counter:
+            out = real(x, w)
+        seen.append(counter.flops)
+        return out
+
+    A.model_rows_product = counted
+    try:
+        yield seen
+    finally:
+        A.model_rows_product = real
+
+
+@contextlib.contextmanager
+def m7_attention_placements():
+    """Inside the context each call of the flash route on DTensors
+    (``flash_attention.ops._attention_local``) appends to the list
+    yielded the placements its q, k and v arrive with (``"arrived"``)
+    and those ``_head_placements`` gives q and k / v (``"placed"``)."""
+    from repro_torch.kernels.flash_attention import ops as FO
+
+    seen, local, heads = [], FO._attention_local, FO._head_placements
+
+    def spied_local(q, k, v, *args):
+        seen.append({"arrived": [str(tuple(t.placements))
+                                 for t in (q, k, v)]})
+        return local(q, k, v, *args)
+
+    def spied_heads(q, n_kv):
+        qp, kvp = heads(q, n_kv)
+        seen[-1]["placed"] = [str(tuple(qp)), str(tuple(kvp))]
+        return qp, kvp
+
+    FO._attention_local, FO._head_placements = spied_local, spied_heads
+    try:
+        yield seen
+    finally:
+        FO._attention_local, FO._head_placements = local, heads
 
 
 def m7_rank(rank, mesh, cfg_m, refs):
@@ -4871,7 +4992,7 @@ def m7_rank(rank, mesh, cfg_m, refs):
     held = sum(v.to_local().numel() * 4 for _, v in named_leaves(masters))
     FK.reset_launches()
     t0 = start()
-    with m_comm_counts() as calls:
+    with m_comm_counts() as calls, m7_attention_placements() as attn:
         loss, grads = value_and_grad(masters, batch, cfg)
     with implicit_replication():
         gnorm = full(global_norm(grads))
@@ -4881,7 +5002,8 @@ def m7_rank(rank, mesh, cfg_m, refs):
                     peak=m_peak(dev), held=held, comm=m_comm_summary(calls),
                     flash=FK.LAUNCHES["flash_attention"],
                     placements=str(tuple(
-                        named_leaves(masters)[0][1].placements)))
+                        named_leaves(masters)[0][1].placements)),
+                    attention=attn)
     del masters, batch, grads
     free()
 
@@ -4931,6 +5053,9 @@ def m7_rank(rank, mesh, cfg_m, refs):
     free()
 
     out["d"] = m7_decode_rank(mesh, dev, progress)
+    free()
+    progress(f"(e) {M_CFG['m7_mla']['arch']}")
+    out["e"] = m7_mla_rank(mesh, dev)
     progress("done")
     return out
 
@@ -4995,6 +5120,104 @@ def m7_decode_rank(mesh, dev, progress=lambda msg: None) -> dict:
     return out
 
 
+def m7_mla_rank(mesh, dev) -> dict:
+    """M7 (e) on one rank of ``mesh``, the (2, 2) ("data", "model")
+    world: deepseek-v2's dense first layer decoding M_CFG["m7_mla"]'s
+    rows, placed by the sharding rules (the masters drawn leaf by leaf,
+    ``m7_placed``): logits (host), the flops of each latent
+    down-projection call on this rank, rank 0's collectives, seconds."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.sharding import (batch_shardings,
+                                             cache_shardings, device_put,
+                                             param_shardings)
+    from repro_torch.models.model import ShapeCell, model_specs
+
+    e, cfg = M_CFG["m7_mla"], m7_mla_cfg()
+    cell = ShapeCell("d", e["slots"], e["batch"], "decode")
+    specs = model_specs(cfg)
+    cache, toks = m7_decode_inputs(cfg, dev, e)
+    with torch.no_grad():
+        params = m7_placed(specs, param_shardings(specs, cfg, mesh),
+                           getattr(torch, cfg.dtype), dev, False)
+        cache = device_put(cache, cache_shardings(cfg, cell, mesh, cache))
+        m_sync(dev)
+        t0 = time.perf_counter()
+        with m_comm_counts() as calls, m7_down_flops() as flops, \
+                implicit_replication():
+            logits = m7_decode_steps(
+                params, cache, toks, cfg, lambda t: device_put(
+                    t, batch_shardings(cfg, cell, mesh, {"t": t})["t"]),
+                d=e)
+        m_sync(dev)
+        seconds = time.perf_counter() - t0
+        out = dict(logits=[_m7_host(lg).float() for lg in logits],
+                   down=flops, comm=m_comm_summary(calls), seconds=seconds)
+    del params, cache, logits
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def m7_mla_dry() -> dict:
+    """The dry run's collectives by op (bytes) of one step of M7 (e),
+    traced on a fake world of M7's 4 ranks over ("data", "model")."""
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import ShapeCell
+
+    e = M_CFG["m7_mla"]
+    return trace_step(m7_mla_cfg(),
+                      ShapeCell("d", e["slots"], e["batch"], "decode"), 4,
+                      lambda devs: make_test_mesh((2, 2), ("data", "model"),
+                                                  devices=devs)
+                      )["collectives"]
+
+
+def m7_check_mla(outs, refs, smi: str) -> None:
+    """M7 (e)'s lines: each rank's logits within M_MOE_RTOL of max
+    |logits| a layer of the single-device decode, each rank's latent
+    down-projections 1 / 4 of the step's, rank 0's collectives a step
+    equal to the dry run's for the same layer and mesh.  Raises on any
+    failed check."""
+    e = M_CFG["m7_mla"]
+    ref = refs["mla"]
+    ref_max = max(float(x.abs().max()) for x in ref)
+    limit = M_MOE_RTOL * e["layers"]
+    whole, ranks = m7_down_shares()
+    for rank, o in enumerate(outs):
+        g = o["e"]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(g["logits"], ref))
+        down = sum(g["down"]) // e["steps"]
+        log(f"M7 (e) {e['arch']}, {e['layers']} layer (dense MLA + MLP), "
+            f"{e['batch']} rows at {e['slots']:,} slots, {e['steps']} "
+            f"decode steps on (data, model) = (2, 2), "
+            f"{m7_mla_cfg().dtype}, rank {rank}: "
+            f"max |err| {err:.4g} of max |logits| {ref_max:.4g} (limit "
+            f"{limit:.2g} of it); latent down-projections {down:,} flops a "
+            f"step on this rank ({len(g['down']) // e['steps']} calls; the "
+            f"step's whole {whole:,} / {ranks} = {whole // ranks:,}); "
+            f"{g['seconds']:.2f} s [{smi}]")
+        if not (err <= limit * ref_max and down == whole // ranks):
+            raise AssertionError(f"M7 (e) rank {rank}: err {err}, down-"
+                                 f"projection flops {down}")
+    dry = m7_mla_dry()
+    dry = {op: [dry["op_counts"][op], b] for op, b in dry["by_op"].items()}
+    card = {op: [n / e["steps"], b / e["steps"]]
+            for op, (n, b, _) in outs[0]["e"]["comm"].items()}
+    log(f"M7 (e) rank 0: {e['steps']} steps, "
+        f"{m_comm_line(outs[0]['e']['comm'])}; a step by op [calls, bytes] "
+        f"{dict(sorted(card.items()))}, the dry run's for the same layer "
+        f"and mesh {dict(sorted(dry.items()))}: "
+        f"{'equal' if card == dry else 'different'} [{smi}]")
+    if card != dry:
+        raise AssertionError(f"M7 (e): rank 0's collectives {card}, the "
+                             f"dry run's {dry}")
+
+
 def m7_check(outs, refs, smi: str) -> None:
     """M7's lines, one a step and rank; raises on any failed check."""
     ref_a = refs["train"]
@@ -5018,6 +5241,16 @@ def m7_check(outs, refs, smi: str) -> None:
             if not ok:
                 raise AssertionError(f"M7 (c) {arch} rank {rank}: {c}")
         a = o["a"]
+        loss_err = abs(a["loss"] - ref_a["loss"]) / ref_a["loss"]
+        gnorm_err = abs(a["gnorm"] - ref_a["gnorm"]) / ref_a["gnorm"]
+        placed = sorted({" / ".join(c.get("placed", ["none"]))
+                         for c in a["attention"]})
+        arrived = sorted({" / ".join(c["arrived"]) for c in a["attention"]})
+        log(f"M7 (a) rank {rank}: loss off the single device's by "
+            f"{loss_err:.3g} (limit {M_LOSS_RTOL}), grad norm by "
+            f"{gnorm_err:.3g} (limit {M_GNORM_RTOL}); {len(a['attention'])} "
+            f"attention calls, q / k / v arrived {arrived}, placed q / kv "
+            f"{placed} [{smi}]")
         log(f"M7 (a) {M_CFG['m7_train']['arch']} TP step, "
             f"{M_CFG['m7_train']['layers']} layer(s), published widths, "
             f"B x T = {M_CFG['m7_train']['batch']} x "
@@ -5033,6 +5266,11 @@ def m7_check(outs, refs, smi: str) -> None:
             f"{a['flash']} times [{smi}]")
         if rank == 0:
             log(f"M7 (a) rank 0: {m_comm_line(a['comm'])} [{smi}]")
+            f32 = ref_a["f32_loss"]
+            log(f"M7 (a) control, the single device's loss in f32 "
+                f"{f32:.6f}: its bf16 loss off it by "
+                f"{abs(ref_a['loss'] - f32) / f32:.3g}, rank 0's sharded "
+                f"bf16 loss by {abs(a['loss'] - f32) / f32:.3g} [{smi}]")
         if not (abs(a["loss"] - ref_a["loss"]) <= M_LOSS_RTOL * ref_a["loss"]
                 and abs(a["gnorm"] - ref_a["gnorm"])
                 <= M_GNORM_RTOL * ref_a["gnorm"]):
@@ -5089,9 +5327,9 @@ def m7_check_decode(outs, refs, smi: str) -> None:
         ref = refs["decode"][arch]
         limit = M_MOE_RTOL * layers
         heads = {}
+        ref_max = max(float(x.abs().max()) for x in ref["logits"])
         for rank, o in enumerate(outs):
             g = o["d"][arch]
-            ref_max = max(float(x.abs().max()) for x in ref["logits"])
             err = max(float((a - b).abs().max())
                       for a, b in zip(g["logits"], ref["logits"]))
             got = [m7_heads(a, b) for a, b in zip(g["q"], ref["q"])]
@@ -5124,6 +5362,18 @@ def m7_check_decode(outs, refs, smi: str) -> None:
                                          f"{theirs}, its pod twin {same}")
         log(f"M7 (d) {arch} rank 0: {d['steps']} steps, "
             f"{m_comm_line(outs[0]['d'][arch]['comm'])} [{smi}]")
+        if "f32" in ref:
+            # the control: how far bf16 rounding alone moves the logits
+            f32_max = max(float(x.abs().max()) for x in ref["f32"])
+            alone = max(float((a - b).abs().max())
+                        for a, b in zip(ref["logits"], ref["f32"]))
+            sharded = max(float((a - b).abs().max()) for a, b in
+                          zip(outs[0]["d"][arch]["logits"], ref["logits"]))
+            log(f"M7 (d) {arch} control, {layers} layers on one device: "
+                f"bf16 against f32 max |err| {alone:.4g} of max |logits| "
+                f"{f32_max:.4g} = {alone / f32_max:.4g}, beside rank 0's "
+                f"sharded bf16 against the single-device bf16 "
+                f"{sharded / ref_max:.4g} [{smi}]")
 
 
 def m_moe_train(cuda, smi: str) -> dict:
@@ -5170,6 +5420,17 @@ def m_moe_train(cuda, smi: str) -> dict:
             f"same layers and mesh {dict(sorted(dry.items()))}: "
             f"{'equal' if card == dry else 'different'}")
     log(f"M7 (d) dry runs: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m7_check_mla(outs, refs, smi)
+    log(f"M7 (e) dry run: {time.perf_counter() - t0:.1f} s")
+    # (a)'s placements last, so that a tree that fails them still
+    # reports (b)-(e)
+    for rank, o in enumerate(outs):
+        placed = {tuple(c.get("placed", ())) for c in o["a"]["attention"]}
+        if placed != {(M7_ROWS_HEADS, M7_ROWS_HEADS)}:
+            raise AssertionError(f"M7 (a) rank {rank}: attention placed "
+                                 f"{placed}, not rows over data and heads "
+                                 f"over model")
     return {"flash_attention": sum(o["a"]["flash"] for o in outs),
             "decode_attention": sum(o["d"][a]["launches"] for o in outs
                                     for a, _ in M_CFG["m7_decode"]["archs"])}

@@ -9,9 +9,11 @@ through the plain ``mha_ref`` and returns that recompute's gradients.
 There is no backward kernel, in the JAX package or here.
 
 On an SPMD rank q, k and v arrive as DTensors (tensor parallelism over
-the heads).  :func:`attention` then keeps the batch where it is sharded
-and splits the heads over the mesh dim that the JAX package's rules give
-them ("model"; on a mesh with no such dim, the first other dim) where
+the heads).  :func:`attention` then places them as the JAX package's
+rules do, whatever placements they arrive with: the batch over "pod"
+and "data" where it divides, and the heads over the mesh dim that the
+rules give them ("model"; on a mesh with no such dim, the first other
+dim) where
 its size divides both ``n_heads`` and ``n_kv_heads`` (so each rank's q
 heads read exactly its own kv heads).  A batch dim that the batch leaves
 free ("pod" or "data" under a batch smaller than the pod) replicates the
@@ -83,21 +85,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _head_placements(q, n_kv: int):
-    """(q placements, kv placements) for (B, H, T, D) DTensors: batch
-    shards stay, heads split over the heads' mesh dim
+    """(q placements, kv placements) for (B, H, T, D) DTensors, as the
+    JAX package's rules place them, whatever placements q arrives with:
+    the batch over "pod" and "data" where it divides
+    (``batch_mesh_dims``), the heads over the heads' mesh dim
     (``heads_mesh_dim``: "model", or on a mesh with no such dim the first
     other dim) where its size divides both head counts, everything else
     replicated."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from ...models.common import heads_mesh_dim
+    from ...models.common import batch_mesh_dims, heads_mesh_dim
 
     mesh = q.device_mesh
     heads_dim = heads_mesh_dim(mesh)
+    batch = batch_mesh_dims(mesh, q.shape[0])
     qp, kvp = [], []
-    for i, pl in enumerate(q.placements):
+    for i in range(mesh.ndim):
         size = mesh.size(i)
-        if isinstance(pl, Shard) and pl.dim == 0:
+        if i in batch:
             qp.append(Shard(0))
             kvp.append(Shard(0))
         elif heads_dim in (None, i) and q.shape[1] % size == 0 \

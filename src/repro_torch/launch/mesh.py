@@ -238,7 +238,10 @@ def gloo_collectives_over_all_reduce():
             # two 16-bit patterns to an int32 word, as they lie: no word
             # holds two ranks' entries, so each word of the sum is one
             # rank's word plus zeros, at the bytes of the tensor itself
-            src = src.view(torch.int32)
+            # (viewed flat: a contiguous tensor's dim of one entry may
+            # carry any stride, which a view to a wider dtype refuses)
+            src = src.reshape(-1).view(torch.int32).view(
+                *src.shape[:-1], src.shape[-1] // 2)
         else:
             wide = torch.int64 if size == 8 else torch.int32
             src = src.view(bits[size]).to(wide)

@@ -27,8 +27,8 @@ from ..kernels.decode_attention.ops import decode
 from ..kernels.flash_attention.ops import _head_placements, attention
 from ..kernels.flash_attention.ref import mha_ref
 from .common import (ParamSpec, apply_rope, copy_to_model,
-                     reduce_from_model, rmsnorm, rmsnorm_spec, row_parallel,
-                     shard_range, summed_to_rows)
+                     model_rows_product, reduce_from_model, rmsnorm,
+                     rmsnorm_spec, row_parallel, shard_range)
 from .config import ArchConfig
 
 
@@ -86,33 +86,36 @@ def gqa_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _like_slots(new: torch.Tensor, buf) -> torch.Tensor:
-    """``new`` (B, H, s, D) as the local tensor that matches ``buf``'s
-    placements on every dim but the slots, which it holds whole."""
+def _like_slots(new: torch.Tensor, buf, dim: int = 2) -> torch.Tensor:
+    """``new`` (B, H, s, D), or any tensor whose slots are dim ``dim``,
+    as the local tensor that matches ``buf``'s placements on every dim
+    but the slots, which it holds whole."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = buf.device_mesh
     if not isinstance(new, DTensor):
         new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
                                  run_check=False)
-    return new.redistribute(mesh, [Replicate() if pl == Shard(2) else pl
+    return new.redistribute(mesh, [Replicate() if pl == Shard(dim) else pl
                                    for pl in buf.placements]).to_local()
 
 
-def write_slot(buf: torch.Tensor, new: torch.Tensor, idx: int) -> None:
-    """``buf[:, :, idx] = new[:, :, 0]`` in place.  On a DTensor cache
-    each rank writes its own block, and on a cache split along its slots
-    (the sequence-parallel caches) only the rank that holds slot ``idx``
+def write_slot(buf: torch.Tensor, new: torch.Tensor, idx: int,
+               dim: int = 2) -> None:
+    """``buf[:, :, idx] = new[:, :, 0]`` in place, or along slots dim
+    ``dim`` (MLA's latent caches: 1).  On a DTensor cache each rank
+    writes its own block, and on a cache split along its slots (the
+    sequence-parallel caches) only the rank that holds slot ``idx``
     writes: nothing is gathered."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(buf, DTensor):
-        buf[:, :, idx:idx + 1] = new
+        buf.narrow(dim, idx, 1).copy_(new)
         return
-    local, begin = buf.to_local(), shard_range(buf, 2)[0]
-    new = _like_slots(new, buf)
-    if begin <= idx < begin + local.shape[2]:
-        local[:, :, idx - begin:idx - begin + 1] = new
+    local, begin = buf.to_local(), shard_range(buf, dim)[0]
+    new = _like_slots(new, buf, dim)
+    if begin <= idx < begin + local.shape[dim]:
+        local.narrow(dim, idx - begin, 1).copy_(new)
 
 
 def roll_slots(buf: torch.Tensor) -> None:
@@ -246,14 +249,6 @@ def _mha_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
-def _latent(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a decode step's stream ``x`` (B, 1, d) and a
-    down-projection ``w`` (d, r) that no mesh dim splits by columns,
-    summed to the stream's rows (:func:`summed_to_rows`): each rank's
-    heads then take its own rows, not every row of the step."""
-    return summed_to_rows(x @ w, x)
-
-
 def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                    device=None) -> Dict[str, torch.Tensor]:
     return {
@@ -274,14 +269,16 @@ def mla_decode(p, x: torch.Tensor, cache: Dict, cur_len: int,
     nope, vd = cfg.qk_nope_dim, cfg.v_head_dim
     pos = torch.full((1, 1, 1), int(cur_len), dtype=torch.int32,
                      device=x.device)
-    q = _mla_q(p, x, cfg, _latent)[:, :, 0]            # (B, H, nope + rope)
+    q = _mla_q(p, x, cfg, model_rows_product)[:, :, 0]  # (B, H, nope + rope)
     q_rope = apply_rope(q[..., nope:][:, :, None], pos,
                         cfg.rope_theta)[:, :, 0]
-    ckv_full = copy_to_model(_latent(x, p["kv_down"]))  # (B, 1, r + rope)
-    cache["ckv"][:, cur_len:cur_len + 1] = rmsnorm(
-        p["kv_norm"], ckv_full[..., :r], cfg.norm_eps)
-    cache["k_rope"][:, cur_len:cur_len + 1] = apply_rope(
-        ckv_full[..., r:][:, None], pos, cfg.rope_theta)[:, 0]
+    # (B, 1, r + rope)
+    ckv_full = copy_to_model(model_rows_product(x, p["kv_down"]))
+    write_slot(cache["ckv"], rmsnorm(p["kv_norm"], ckv_full[..., :r],
+                                     cfg.norm_eps), cur_len, dim=1)
+    write_slot(cache["k_rope"], apply_rope(
+        ckv_full[..., r:][:, None], pos, cfg.rope_theta)[:, 0], cur_len,
+        dim=1)
     ckv, k_rope = cache["ckv"], cache["k_rope"]
 
     # absorb k_up into q: (B, H, nope) x (r, H, nope) -> (B, H, r)

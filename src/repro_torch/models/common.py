@@ -405,6 +405,82 @@ def summed_to_rows(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return _placed(y, y.device_mesh, _rows_only(x))
 
 
+def model_rows_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a decode step's stream ``x`` (N, ..., d) (no
+    gradient; split by rows only) and a weight ``w`` (d, r) whose rows
+    FSDP splits over one mesh dim ("data") and whose columns no mesh dim
+    splits: MLA's latent down-projections and the MoE router.  Placed as
+    :func:`summed_to_rows` places it.
+
+    Each rank multiplies 1 / (n_data n_model) of the step's product, as
+    in the JAX package's partitioned HLO, where each "model" rank
+    contracts its own rows over a share of d (a collective-permute of
+    the weight's block) and the partial sums are all-reduced over
+    "model".  Here no weight moves: DTensor moves the stream to a split
+    of d over "data" (an all-to-all), each "model" rank multiplies its
+    share of those rows over its "data" rank's block of d, the partial
+    sums are all-reduced over "data" in f32, as that HLO all-reduces
+    them, and rounded once to ``x``'s dtype, as the single device's
+    product is, and an all-reduce over "model", to
+    which one rank brings each row, hands every rank its own rows.
+    Where no mesh dim splits ``w``'s rows, or no "model" dim repeats the
+    product (``heads_mesh_dim``), :func:`summed_to_rows` of the product,
+    which no rank then repeats."""
+    if not _is_dtensor(x):
+        return x @ w
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = x.device_mesh
+    split = [i for i, pl in enumerate(w.placements)
+             if pl == Shard(0) and mesh.size(i) > 1]
+    model = heads_mesh_dim(mesh)
+    if not split or model is None or mesh.size(model) == 1:
+        return summed_to_rows(x @ w, x)
+    data, = split
+    rows = _rows_only(x)
+    if tuple(x.placements) != tuple(rows) or rows[model] != Replicate() \
+            or any(pl != Replicate() for i, pl in enumerate(w.placements)
+                   if i != data):
+        raise ValueError(f"model_rows_product: stream {x.placements}, "
+                         f"weight {w.placements} on {mesh}")
+    # the rows of the "data" group (all of them where "data" does not
+    # split the batch), each rank's block of d
+    xt = x.redistribute(mesh, [Shard(x.ndim - 1) if i == data else pl
+                               for i, pl in enumerate(rows)])
+    group_lo, group_n = shard_range(xt, 0)
+    own_lo, own_n = shard_range(x, 0)
+    own_lo -= group_lo
+    n_m, m = mesh.size(model), mesh.get_local_rank(model)
+    chunk = -(-group_n // n_m)
+    lo, hi = min(m * chunk, group_n), min((m + 1) * chunk, group_n)
+    part = xt.to_local()[lo:hi].float() @ w.to_local().float()
+    part = _ready(funcol.all_reduce(part, "sum", (mesh, data))).to(x.dtype)
+    out = part.new_zeros((own_n,) + tuple(part.shape[1:]))
+    a, b = max(lo, own_lo), min(hi, own_lo + own_n)
+    if a < b:
+        out[a - own_lo:b - own_lo] = part[a - lo:b - lo]
+    out = _ready(funcol.all_reduce(out, "sum", (mesh, model)))
+    shape = tuple(x.shape[:-1]) + (w.shape[-1],)
+    return DTensor.from_local(out, mesh, rows, run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= n
+    return tuple(reversed(stride))
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
 def settle_residual(x: torch.Tensor) -> torch.Tensor:
     """The residual stream between blocks, on a DTensor rank: whole but
     for its rows, and its gradient too (:func:`reduce_from_model`),
@@ -420,6 +496,23 @@ def heads_mesh_dim(mesh) -> Optional[int]:
     batch dim the batch leaves free ("pod", "data") replicates them."""
     names = mesh.mesh_dim_names or ()
     return names.index("model") if "model" in names else None
+
+
+def batch_mesh_dims(mesh, batch: int) -> List[int]:
+    """The dims of DeviceMesh ``mesh`` that the JAX package's rules give
+    a batch of ``batch`` rows (``launch.sharding.logical_rules``:
+    "batch" over ("pod", "data"), each dim in mesh order where the
+    product of the dims taken so far and its own size divides the
+    batch, as ``_spec_for`` guards an argument's split), leaving out a
+    dim of one rank, whose split would split nothing."""
+    names = mesh.mesh_dim_names or ()
+    out, prod = [], 1
+    for i, name in enumerate(names):
+        if name in ("pod", "data") and mesh.size(i) > 1 \
+                and batch % (prod * mesh.size(i)) == 0:
+            out.append(i)
+            prod *= mesh.size(i)
+    return out
 
 
 def replica_plan(n_kv: int, group: int, n: int) -> Optional[Tuple[int, int,

@@ -225,7 +225,8 @@ def _block_decode(p, x, cache, cur_len: int, cfg: ArchConfig, kind: str,
                                 window=None, dtype=dtype)
     x = settle_residual(x + h)
     h = copy_to_model(rmsnorm(p["norm2"], x, cfg.norm_eps))
-    return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype), cache
+    return x + F.ffn_forward(p["ffn"], h, cfg, ffn_kind, dtype,
+                             decode=True), cache
 
 
 def decoder_decode_step(params, cache, x: torch.Tensor, cur_len: int,

@@ -40,8 +40,9 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import (ParamSpec, _is_dtensor, _placed, copy_to_model,
-                     gathered_on_use, row_parallel, shard_range)
+from .common import (ParamSpec, _contiguous_stride, _is_dtensor, _placed,
+                     _ready, copy_to_model, gathered_on_use,
+                     model_rows_product, row_parallel, shard_range)
 from .config import ArchConfig
 
 
@@ -204,7 +205,8 @@ def route(cfg: ArchConfig, logits: torch.Tensor) -> Routing:
 def _choice_sum(per_entry: torch.Tensor, k: int) -> torch.Tensor:
     """(S * k, d) rows in (token, choice) order summed over each token's
     k choices, in choice order."""
-    per_entry = per_entry.reshape(per_entry.shape[0] // k, k, -1)
+    per_entry = per_entry.reshape(per_entry.shape[0] // k, k,
+                                  *per_entry.shape[1:])
     out = per_entry[:, 0]
     for j in range(1, k):
         out = out + per_entry[:, j]
@@ -282,8 +284,11 @@ def combine(contrib: torch.Tensor, order: torch.Tensor, s: int, k: int,
     return _choice_sum(_Permute.apply(contrib, inv, order), k)
 
 
-def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
-                ) -> torch.Tensor:
+def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype,
+                decode: bool = False) -> torch.Tensor:
+    """``decode``: a decode step's stream (no gradient), whose router
+    product each "model" rank takes its share of
+    (:func:`~.common.model_rows_product`)."""
     b, t, d = x.shape
     s = b * t
     # the flattened tokens feed the router, the experts and the shared
@@ -291,7 +296,8 @@ def moe_forward(p, x: torch.Tensor, cfg: ArchConfig, dtype
     # tokens as the rows were (256 rows do not split over a 512-rank
     # flattening)
     xf = copy_to_model(x.reshape(s, d))
-    r = route(cfg, xf @ p["router"])
+    r = route(cfg, model_rows_product(xf, p["router"]) if decode
+              else xf @ p["router"])
     if _is_dtensor(xf):
         xf = _token_rows(xf, p["w1"])
     routed = _routed_on_ranks if _is_dtensor(xf) else _routed
@@ -588,13 +594,6 @@ def _token_group(mesh, tok):
     return (mesh[tuple(names[i] for i in tok)]._flatten(), 0)
 
 
-def _ready(t: torch.Tensor) -> torch.Tensor:
-    from torch.distributed._functional_collectives import \
-        AsyncCollectiveTensor
-
-    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
-
-
 def _all_to_all(t: torch.Tensor, send, recv, group) -> torch.Tensor:
     """``send[j]`` rows of ``t`` to rank j of ``group``, in rank order;
     the result holds ``recv[i]`` rows from rank i, in rank order."""
@@ -635,14 +634,6 @@ class _Take(torch.autograd.Function):
         idx, = ctx.saved_tensors
         return g.new_zeros((ctx.n,) + tuple(g.shape[1:])).index_put(
             (idx,), g), None
-
-
-def _contiguous_stride(shape) -> tuple:
-    stride, step = [], 1
-    for n in reversed(shape):
-        stride.append(step)
-        step *= n
-    return tuple(reversed(stride))
 
 
 def _move(t: torch.Tensor, mesh, shape, src: dict, dst: dict
@@ -840,8 +831,8 @@ def ffn_specs(cfg: ArchConfig, kind: str) -> Dict[str, ParamSpec]:
     return moe_specs(cfg) if kind == "moe" else dense_specs(cfg)
 
 
-def ffn_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str, dtype
-                ) -> torch.Tensor:
+def ffn_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str, dtype,
+                decode: bool = False) -> torch.Tensor:
     if kind == "moe":
         from .common import _ACT_CTX
 
@@ -850,5 +841,5 @@ def ffn_forward(p, x: torch.Tensor, cfg: ArchConfig, kind: str, dtype
             token_axes, model_axis = ctx["axes"]["moe_ep"]
             return moe_forward_ep(p, x, cfg, dtype, ctx["mesh"],
                                   token_axes, model_axis)
-        return moe_forward(p, x, cfg, dtype)
+        return moe_forward(p, x, cfg, dtype, decode)
     return dense_forward(p, x, dtype)

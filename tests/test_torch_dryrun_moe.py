@@ -115,26 +115,37 @@ def test_deepseek_v2_prefill_cell():
 
 
 def test_deepseek_v2_decode_cells():
-    """The MoE layers of a decode step take the stream as it arrives
-    (partial sums over "model", then split by d) and hand their output
-    back split by d over "data" and "model" (``ffn._stream_of``), as
-    the parent's read-back of every expert's output left it: the next
-    layer's MLA input products then run on every row's slice of d.  A
-    stream split by rows alone had each "model" rank compute its "data"
-    block's products whole, 1.03 times the parent's flops.  Flops a
-    device at most the parent's (340,343,193,600 on ``pod16x16``,
-    176,261,529,600 on ``pod2x16x16``), collective bytes too
-    (624,572,672 and 303,603,360)."""
+    """Each "model" rank multiplies its share of a decode step's products
+    by the ("embed", None) weights that FSDP splits over "data", MLA's
+    latent down-projections (``q_down``, ``kv_down``) and the MoE router
+    (``common.model_rows_product``; ROADMAP C16): the stream moves to a
+    split of d over "data", each "model" rank takes 8 (``pod16x16``) / 4
+    (``pod2x16x16``) of the group's rows, and the latents' partial sums
+    are all-reduced over "data" and then to each rank's rows over
+    "model".  The JAX package's partitioned HLO gives each rank the same
+    products the other way round: its own rows over a sixteenth of d (a
+    collective-permute of the weight's block), all-reduced over "model".
+    So the port's flops a device are the JAX package's dot flops
+    exactly; while each "model" rank repeated its "data" block's whole
+    product they were 1.033 of them.  Collective bytes stay below the
+    JAX package's totals."""
+    from test_torch_dryrun import _REFERENCE, _run
+
     procs = [_start_cell("deepseek-v2-236b", "decode_32k", multi_pod=mp)
              for mp in (False, True)]
+    refs = [_run(_REFERENCE.replace(
+        'D.run_cell("granite-8b", "decode_32k", False',
+        f'D.run_cell("deepseek-v2-236b", "decode_32k", {mp}'))
+        for mp in (False, True)]
     single, multi = (_finish_cell(p, chips) for p, chips in
                      zip(procs, (256, 512)))
-    for r, flops, coll in ((single, 340_343_193_600, 624_572_672),
-                           (multi, 176_261_529_600, 303_603_360)):
+    for r, ref, chips, flops in ((single, refs[0], 256, 298_482_892_800),
+                                 (multi, refs[1], 512, 155_331_379_200)):
+        assert ref["status"] == "ok" and ref["chips"] == chips
         assert r["step_kind"] == "decode" and r["tokens_per_step"] == 128
-        assert r["flops_per_device"] <= flops, r["flops_per_device"]
-        assert r["collective_bytes_per_device"] <= coll, \
-            r["collective_bytes_per_device"]
+        assert r["flops_per_device"] == ref["dot_flops"] == flops
+        assert r["collective_bytes_per_device"] \
+            < ref["collective_bytes_per_device"]
         assert "all-to-all" in r["collectives"]
 
 

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import torch_spmd_workers as W  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh, spawn  # noqa: E402
+from repro_torch.launch.roofline import COLLECTIVE_OPS  # noqa: E402
 
 TOL = 1e-5
 ROUTES = (*W.POD_DECODE_ARCHS, "prefill")
@@ -175,16 +176,52 @@ def batch_world():
                                                 devices=["cpu"] * 4))
 
 
+def test_moe_decode_of_one_row_matches_the_single_device_step(batch_world):
+    """llama4-scout-17b-a16e-smoke decoding one row on the (2, 2) mesh,
+    whose "data" cannot split it: each "data" rank multiplies the row
+    over its half of d in the router, one "model" rank of each takes the
+    row and the other none, and the MoE layer's reduce-scatter of the
+    row's expert outputs over "model" leaves one rank no rows to sum
+    (``ffn._choice_sum`` of none); logits and caches within 1e-5 (f32)."""
+    for out in batch_world:
+        got = out["moe_one_row"]
+        np.testing.assert_allclose(got["logits"], got["want"], rtol=TOL,
+                                   atol=TOL)
+        assert len(got["cache"]) == len(got["want_cache"])
+        for a, b in zip(got["cache"], got["want_cache"]):
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("arch", W.BATCH_DECODE_ARCHS)
 def test_batch_decode_matches_the_single_device_step(batch_world, arch):
     """A decode step of 4 rows on the (2, 2) ("data", "model") mesh:
-    MLA's latent down-projections and output projection summed to the
-    stream's rows (deepseek-v2-236b-smoke), the MoE layers fed from a
-    settled stream, Mamba's in-projection halves by an all-to-all on
-    each rank's rows, RG-LRU's gates reduce-scattered; logits and caches
-    within 1e-5 (f32), and the stream entering each block split by rows
-    only."""
-    n_blocks = get_config(arch).n_layers
+    MLA's output projection summed to the stream's rows and its latent
+    down-projections split over "model" (deepseek-v2-236b-smoke), the
+    MoE layers fed from a settled stream, Mamba's in-projection halves
+    by an all-to-all on each rank's rows, RG-LRU's gates
+    reduce-scattered; logits and caches within 1e-5 (f32), and the
+    stream entering each block split by rows only.
+
+    Each "model" rank of deepseek-v2-236b-smoke multiplies 2 of the
+    "data" group's 4 rows over its "data" rank's half of d (ROADMAP
+    C16): every collective of a latent (q_down's 48 columns, kv_down's
+    32 + 16) is an all-reduce of (2, 1, 48), the partial sums over
+    "data" and then each rank's own rows over "model", two a
+    down-projection and MLA layer; none sums a partial product of all 4
+    rows (the reduce-scatter of (4, 1, 48) partials to (2, 1, 48) that
+    had each "model" rank repeat its "data" block's whole product)."""
+    cfg = get_config(arch)
+    n_blocks = cfg.n_layers
+    if cfg.kv_lora_rank:
+        widths = {cfg.q_lora_rank, cfg.kv_lora_rank + cfg.qk_rope_dim}
+        for out in batch_world:
+            latents = [(op, shape) for op, shape
+                       in out[arch]["collective_shapes"]
+                       if op in COLLECTIVE_OPS and len(shape) == 3
+                       and shape[-1] in widths]
+            assert len(latents) == 4 * n_blocks, latents
+            assert {(op, shape[0]) for op, shape in latents} == {
+                ("all_reduce", W.DECODE_B // 2)}, latents
     for out in batch_world:
         got = out[arch]
         np.testing.assert_allclose(got["logits"], got["want"], rtol=TOL,

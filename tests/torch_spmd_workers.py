@@ -1023,8 +1023,9 @@ def pod_routes(rank, mesh):
 
 # the decode blocks on a ("data", "model") mesh whose "data" splits the
 # batch: MLA and MoE, whose weights' d FSDP also splits over "data"
-# (the latent down-projections' and the output projection's partial
-# sums summed to the stream's rows), and Mamba and RG-LRU (the
+# (each "model" rank multiplying its share of the latent
+# down-projections and the router, the output projection's partial sums
+# summed to the stream's rows), and Mamba and RG-LRU (the
 # in-projection's halves by an all-to-all over "model" on each rank's
 # rows, the gates' reduce-scatter)
 BATCH_DECODE_ARCHS = ("deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke",
@@ -1034,12 +1035,121 @@ BATCH_DECODE_ARCHS = ("deepseek-v2-236b-smoke", "llama4-scout-17b-a16e-smoke",
 def batch_decode(rank, mesh):
     """One decode step of each ``BATCH_DECODE_ARCHS`` config at batch
     ``DECODE_B`` (:func:`_decode_pair`), with the collectives it ran (op,
-    result bytes) and the stream's placements into each block."""
+    result bytes), their result shapes and the stream's placements into
+    each block."""
     out = {}
     for arch in BATCH_DECODE_ARCHS:
         sizes = _collective_sizes()
         with sizes, decode_streams() as streams:
             out[arch] = _decode_pair(get_config(arch), mesh, DECODE_B)
         out[arch]["collectives"] = sizes.seen
+        out[arch]["collective_shapes"] = sizes.shapes
         out[arch]["streams"] = [s for s in streams if s != "plain"]
+    # one row, which "data" cannot split: the router takes the
+    # replicated row's blocks of d, one "model" rank of each "data" rank
+    # sums the row's expert outputs and the other none
+    out["moe_one_row"] = _decode_pair(get_config(MOE_ARCH), mesh, 1)
+    return out
+
+
+# the TP train step's attention on the (2, 2) ("data", "model") world
+# (ROADMAP C15): the rows over "data" and the heads over "model", as the
+# JAX package's rules place them
+ROWS_ARCHS = ("llama4-scout-17b-a16e-smoke", "granite-8b-smoke")
+
+
+@contextlib.contextmanager
+def attention_placements():
+    """Inside the context each call of the flash route on DTensors
+    (``flash_attention.ops._attention_local``) appends to the list
+    yielded the placements its q, k and v arrive with (``"arrived"``)
+    and those ``_head_placements`` gives q and k / v (``"placed"``)."""
+    from repro_torch.kernels.flash_attention import ops as FO
+
+    seen, local, heads = [], FO._attention_local, FO._head_placements
+
+    def spied_local(q, k, v, *args):
+        seen.append({"arrived": [str(tuple(t.placements))
+                                 for t in (q, k, v)]})
+        return local(q, k, v, *args)
+
+    def spied_heads(q, n_kv):
+        qp, kvp = heads(q, n_kv)
+        seen[-1]["placed"] = [str(tuple(qp)), str(tuple(kvp))]
+        return qp, kvp
+
+    FO._attention_local, FO._head_placements = spied_local, spied_heads
+    try:
+        yield seen
+    finally:
+        FO._attention_local, FO._head_placements = local, heads
+
+
+def attention_rows(rank, mesh):
+    """Each ``ROWS_ARCHS`` config's loss and every master's gradient
+    from one TP train step, the masters and the batch placed by the
+    sharding rules on ``mesh``, with the placements of each attention
+    call (:func:`attention_placements`)."""
+    out = {}
+    for arch in ROWS_ARCHS:
+        cfg = get_config(arch)
+        params = init_params(cfg, 0, device="cpu", masters=True)
+        batch = _tensors(train_batch(cfg, PAIR_B, PAIR_T))
+        cell = ShapeCell("t", PAIR_T, PAIR_B, "train")
+        with attention_placements() as seen:
+            loss, grads = value_and_grad(
+                device_put(params, param_shardings(model_specs(cfg), cfg,
+                                                   mesh)),
+                device_put(batch, batch_shardings(cfg, cell, mesh, batch)),
+                cfg)
+        out[arch] = {"loss": float(_host(loss)),
+                     "grads": {k: _host(v) for k, v in named_leaves(grads)},
+                     "attention": seen}
+    return out
+
+
+def partial_queries(rank, mesh):
+    """The flash route on the (2, 2) world with q arriving as DTensor
+    hands it to llama4-scout's TP step at published widths:
+    partial sums over "data", heads over "model"; k and v split by rows
+    over "data" and by heads over "model".  2 rows (one a "data" rank),
+    4 q / 2 kv heads, 16 tokens of 32 dims, causal.  On DTensor's own
+    gloo collectives and again through
+    ``gloo_collectives_over_all_reduce`` (whose all-gathers carry the
+    backward's one-row blocks): the output and q / k / v's gradients of
+    ``sum(out * w)`` (gathered), the placements of the call
+    (:func:`attention_placements`), and a bf16 block of one row whose
+    dim of one entry has stride 1, gathered over "data" by each route."""
+    from torch.distributed.tensor import (DTensor, Partial, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.kernels.flash_attention.ops import attention
+
+    dm = device_mesh(mesh)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, h, 16, 32, generator=gen) for h in (4, 2, 2))
+    w = torch.randn(2, 4, 16, 32, generator=gen)
+    heads = q.chunk(2, dim=1)[dm.get_local_rank(1)]
+    odd = torch.empty_strided((1, 4), (1, 1), dtype=torch.bfloat16)
+    odd.copy_(GATHER_PROBE[:4].reshape(1, 4) + rank)
+    out = {}
+    for route, ctx in (("native", contextlib.nullcontext),
+                       ("over_all_reduce", gloo_collectives_over_all_reduce)):
+        with ctx(), attention_placements() as seen:
+            # each "data" rank holds half of q: the halves sum exactly
+            qd = DTensor.from_local(heads * 0.5, dm, [Partial(), Shard(1)],
+                                    run_check=False).requires_grad_()
+            kd, vd = (distribute_tensor(t, dm, [Shard(0), Shard(1)])
+                      .requires_grad_() for t in (k, v))
+            o = attention(qd, kd, vd, causal=True).full_tensor()
+            grads = torch.autograd.grad((o * w).sum(), (qd, kd, vd))
+            gathered = funcol.all_gather_tensor(odd, 0, (dm, 0))
+        out[route] = {"out": _host(o), "grads": [_host(g) for g in grads],
+                      "attention": seen,
+                      "gathered": _host(torch.as_tensor(gathered))}
+    # the "data" group of this rank: ranks m and m + 2 of model rank m
+    out["inputs"] = {"q": q.numpy(), "k": k.numpy(), "v": v.numpy(),
+                     "w": w.numpy(),
+                     "odd": [_host(odd + r - rank) for r in (
+                         dm.get_local_rank(1), dm.get_local_rank(1) + 2)]}
     return out
